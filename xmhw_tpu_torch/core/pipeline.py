@@ -1,0 +1,345 @@
+"""Host <-> device orchestration: cell blocks, K selection, downloads.
+
+Port of :mod:`xmhw_tpu.core.pipeline` for one device. Cells are processed
+in fixed-size blocks; each block is uploaded once and stays on the device
+through every stage, and each block's results come back in one copy per
+dtype (:func:`fetch_rows`).
+
+float32 on the GPU runs the three CUDA kernels (clim percentile, event
+RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
+code. CPU tensors always take the plain versions. There is no device
+mesh: ``mesh``/``use_mesh`` accept only None/False.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.doy_quantile import doy_quantile
+from .clim import clim_kernel, finish_clim
+from .features_scan import count_events, detect_kernel
+
+# Cells per block. A fixed 4,096: the size the TPU benchmark times and
+# the production block width. At T = 14,610 days a float32 block is
+# ~240 MB, and the largest temporaries (the plain clim pool, ~2.6 GB) fit
+# an 80 GB card many times over.
+DEFAULT_BLOCK = 4096
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device when no GPU
+    is available (there is no silent fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain torch code")
+    return dev
+
+
+def _no_mesh(mesh, use_mesh):
+    if mesh is not None or use_mesh:
+        raise NotImplementedError(
+            "xmhw_tpu_torch runs on one device: mesh/use_mesh must be "
+            "None/False")
+
+
+def use_kernels_for(dtype, dev, override=None) -> bool:
+    """The JAX package's dtype rule: kernels for float32 on the
+    accelerator, plain code otherwise, unless overridden."""
+    if override is not None:
+        return bool(override)
+    return np.dtype(dtype) == np.float32 and dev.type == "cuda"
+
+
+def _block_size(n_cells, block):
+    return max(1, min(block or DEFAULT_BLOCK, n_cells))
+
+
+def upload(arr_np, lo, hi, dev, pad_rows=0):
+    """Cells [lo, hi) of a (T, C) host array as a (T + pad_rows, hi-lo)
+    device tensor, the pad rows NaN."""
+    blk = np.ascontiguousarray(arr_np[..., lo:hi])
+    src = torch.from_numpy(blk)
+    if not pad_rows:
+        return src.to(dev)
+    out = torch.empty((blk.shape[0] + pad_rows,) + blk.shape[1:],
+                      dtype=src.dtype, device=dev)
+    out[:blk.shape[0]].copy_(src)
+    out[blk.shape[0]:] = float("nan")
+    return out
+
+
+def fetch_rows(d):
+    """Download a dict of device tensors with ONE device-to-host copy per
+    dtype (flattened and concatenated on the device first). Returns
+    numpy arrays of the original shapes."""
+    groups = {}
+    for k, v in d.items():
+        groups.setdefault(v.dtype, []).append(k)
+    out = {}
+    for ks in groups.values():
+        flat = torch.cat([d[k].reshape(-1) for k in ks]).cpu().numpy()
+        lo = 0
+        for k in ks:
+            n = d[k].numel()
+            out[k] = flat[lo:lo + n].reshape(tuple(d[k].shape))
+            lo += n
+    return out
+
+
+def _round_k(k: int) -> int:
+    """Round event capacity up (32, then powers of two)."""
+    k = max(k, 1)
+    if k <= 32:
+        return 32
+    return 1 << (k - 1).bit_length()
+
+
+def _fill_of(v):
+    return -1 if np.issubdtype(v.dtype, np.integer) else np.nan
+
+
+def _clim_tables(doy_np, w, ndoy, kernels, dev):
+    """Range tables for the kernel, or the gather table for the plain
+    path. Sub-daily data with duplicate (doy, year) centres cannot use
+    the range form and goes to the gather path (a choice made by the
+    data, as in the JAX package)."""
+    from .calendar import build_window_index, build_window_ranges
+
+    if kernels:
+        try:
+            starts, lens, ny, rmax = build_window_ranges(doy_np, w, ndoy)
+        except ValueError:
+            kernels = False
+        else:
+            return True, dict(
+                starts=torch.from_numpy(starts.reshape(-1)).to(dev),
+                lens=torch.from_numpy(lens.reshape(-1)).to(dev),
+                ny=ny, rmax=rmax)
+    gidx, _ = build_window_index(doy_np, w, ndoy)
+    return False, dict(gidx=torch.from_numpy(gidx).to(dev), rmax=0)
+
+
+def _clim_block(x, tables, kernels, ndoy, pctile, smooth, smooth_w,
+                patch_feb29):
+    """Climatology of one block: kernels take the rmax-padded series."""
+    if kernels:
+        th, se = doy_quantile(x, tables["starts"], tables["lens"], ndoy,
+                              tables["ny"], tables["rmax"], pctile)
+        return finish_clim(th, se, smooth, smooth_w, patch_feb29)
+    return clim_kernel(x, tables["gidx"], pctile=pctile, smooth=smooth,
+                       smooth_w=smooth_w, patch_feb29=patch_feb29)
+
+
+def run_clim(ts_np, doy_np, w, ndoy, pctile, smooth, smooth_w, patch_feb29,
+             block=None, mesh=None, use_kernels=None, use_mesh=False,
+             device="cuda"):
+    """Climatology for all cells: (T, C) -> (thresh, seas) as (ndoy, C)
+    numpy arrays (reference: xmhw/xmhw.py:250-307)."""
+    _no_mesh(mesh, use_mesh)
+    dev = resolve_device(device)
+    T, C = ts_np.shape
+    kernels, tables = _clim_tables(
+        doy_np, w, ndoy, use_kernels_for(ts_np.dtype, dev, use_kernels),
+        dev)
+    out_t = np.empty((ndoy, C), ts_np.dtype)
+    out_s = np.empty((ndoy, C), ts_np.dtype)
+    B = _block_size(C, block)
+    for lo in range(0, C, B):
+        hi = min(lo + B, C)
+        x = upload(ts_np, lo, hi, dev, pad_rows=tables["rmax"])
+        th, se = _clim_block(x, tables, kernels, ndoy, pctile, smooth,
+                             smooth_w, patch_feb29)
+        got = fetch_rows({"th": th, "se": se})
+        out_t[:, lo:hi] = got["th"]
+        out_s[:, lo:hi] = got["se"]
+    return out_t, out_s
+
+
+class _Tables:
+    """Host event tables (K, C), filled block by block; grows K when a
+    later block needs more rows."""
+
+    def __init__(self, C):
+        self.C = C
+        self.arrays = None
+
+    def put(self, tbl_h, lo, hi, K):
+        from ..xrlite.alloc import alloc_filled
+
+        if self.arrays is None:
+            self.arrays = {k: alloc_filled((K, self.C), _fill_of(v), v.dtype)
+                           for k, v in tbl_h.items()}
+        elif next(iter(self.arrays.values())).shape[0] < K:
+            for k, old in self.arrays.items():
+                grown = alloc_filled((K, self.C), _fill_of(old), old.dtype)
+                grown[:old.shape[0]] = old
+                self.arrays[k] = grown
+        for k, v in tbl_h.items():
+            self.arrays[k][:v.shape[0], lo:hi] = v
+
+
+def _detect_retry(x, th, se, doy_pos, K, cap, intermediate, det_kw):
+    """detect_kernel with the overflow retry: the raw per-cell counts
+    can exceed K; rerun with a larger K unless the cap forbids it."""
+    while True:
+        tbl, nev, inter = detect_kernel(x, th, se, doy_pos, K,
+                                        intermediate=intermediate, **det_kw)
+        raw_max = int(nev.max()) if nev.numel() else 0
+        if raw_max <= K or cap(_round_k(raw_max)) == K:
+            return tbl, nev, inter, K
+        K = cap(_round_k(raw_max))
+
+
+def _warn_dropped(dropped, k_cap):
+    if dropped:
+        from ..utils import logger
+
+        logger.warning(
+            "k_cap=%d truncated the event table: %d event(s) dropped "
+            "across the grid", k_cap, dropped)
+
+
+def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
+               max_gap, intermediate=False, block=None, mesh=None,
+               k_cap=None, day0_fillna_quirk=False, use_kernels=None,
+               k_min=None, first_k=None, use_mesh=False, device="cuda"):
+    """Detection for all cells: returns (tables dict of (K, C) numpy,
+    n_events (C,), inter dict of (T, C) numpy).
+
+    ``th_np``/``se_np`` are (D, C) doy climatologies; ``doy_pos_np`` (T,)
+    maps timesteps to climatology rows. K is fixed by a counting pass on
+    the first block (or ``first_k``); later blocks run optimistically and
+    retry with a larger K when the raw counts overflow. ``k_cap`` is an
+    exact memory contract: events beyond it are dropped with a warning.
+    """
+    _no_mesh(mesh, use_mesh)
+    dev = resolve_device(device)
+    T, C = ts_np.shape
+    kernels = use_kernels_for(ts_np.dtype, dev, use_kernels)
+
+    def cap(k):
+        return min(k, int(k_cap)) if k_cap is not None else k
+
+    det_kw = dict(min_duration=min_duration, join_gaps=join_gaps,
+                  max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
+                  use_kernels=kernels)
+    n_events = np.zeros(C, np.int32)
+    dropped = 0
+    K = cap(_round_k(int(first_k))) if first_k else None
+    tables = _Tables(C)
+    inter_out = {}
+    doy_pos = torch.from_numpy(np.asarray(doy_pos_np, np.int32)).to(dev)
+    B = _block_size(C, block)
+    for lo in range(0, C, B):
+        hi = min(lo + B, C)
+        ts, th, se = (upload(a, lo, hi, dev) for a in (ts_np, th_np, se_np))
+        if K is None:
+            n = count_events(ts, th, doy_pos, min_duration, join_gaps,
+                             max_gap, day0_fillna_quirk, kernels)
+            K = cap(_round_k(max(int(n.max()), int(k_min or 1))))
+        tbl, nev, inter, K = _detect_retry(ts, th, se, doy_pos, K, cap,
+                                           intermediate, det_kw)
+        parts = {("nev", "nev"): nev}
+        parts.update({("tbl", k): v for k, v in tbl.items()})
+        parts.update({("inter", k): v for k, v in inter.items()})
+        fetched = fetch_rows(parts)
+        nev = fetched[("nev", "nev")]
+        dropped += int(np.maximum(nev - K, 0).sum())
+        n_events[lo:hi] = np.minimum(nev, K)
+        tables.put({k: fetched[("tbl", k)] for k in tbl}, lo, hi, K)
+        for k in inter:
+            v = fetched[("inter", k)]
+            if k not in inter_out:
+                inter_out[k] = np.empty((T, C), v.dtype)
+            inter_out[k][:, lo:hi] = v
+    _warn_dropped(dropped, k_cap)
+    return tables.arrays, n_events, inter_out
+
+
+def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
+              smooth=True, smooth_w=31, patch_feb29=True, min_duration=5,
+              join_gaps=True, max_gap=2, day0_fillna_quirk=False,
+              cold_spells=False, ts_clim_np=None, doy_clim_np=None,
+              nbins=0, rank_names=(), det_mask_np=None, block=None,
+              mesh=None, k_min=None, k_cap=None, use_kernels=None,
+              device="cuda"):
+    """Climatology + detection with one upload per cell block: the
+    climatology never leaves the device before detection uses it.
+
+    ``ts_np``: (T, C) original series (not negated). ``ts_clim_np``/
+    ``doy_clim_np``: optional climatologyPeriod subset for the
+    climatology stage (default: the full series). ``det_mask_np``: (C,)
+    bool, cells where it is False are excluded from detection (NaN
+    thresholds and seasonal means, so no events). The
+    year-block statistics and ranks of the JAX package (``nbins``,
+    ``rank_names``) are not ported yet.
+
+    Returns (th, se, tables, n_events, extras) with ``extras`` empty.
+    """
+    if nbins or rank_names:
+        raise NotImplementedError(
+            "run_fused stats (nbins/rank_names) are not ported yet")
+    _no_mesh(mesh, False)
+    dev = resolve_device(device)
+    T, C = ts_np.shape
+    if ts_clim_np is None:
+        ts_clim_np, doy_clim_np = ts_np, doy_np
+    same_clim = ts_clim_np is ts_np
+    kernels = use_kernels_for(ts_np.dtype, dev, use_kernels)
+    kclim, tables = _clim_tables(doy_clim_np, w, ndoy, kernels, dev)
+
+    def cap(k):
+        return min(k, int(k_cap)) if k_cap is not None else k
+
+    det_kw = dict(min_duration=min_duration, join_gaps=join_gaps,
+                  max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
+                  use_kernels=kernels)
+    doy_pos = torch.from_numpy(np.asarray(doy_pos_np, np.int32)).to(dev)
+    out_t = np.empty((ndoy, C), ts_np.dtype)
+    out_s = np.empty((ndoy, C), ts_np.dtype)
+    n_events = np.zeros(C, np.int32)
+    ev_tables = _Tables(C)
+    dropped = 0
+    K = cap(_round_k(int(k_min))) if k_min else None
+    B = _block_size(C, block)
+    nan = float("nan")
+    for lo in range(0, C, B):
+        hi = min(lo + B, C)
+        # the main series carries the clim kernel's NaN tail rows when it
+        # also feeds the climatology, so one upload serves both stages
+        x_pad = upload(ts_np, lo, hi, dev,
+                       pad_rows=tables["rmax"] if same_clim else 0)
+        xc = x_pad if same_clim else upload(ts_clim_np, lo, hi, dev,
+                                            pad_rows=tables["rmax"])
+        if cold_spells:
+            x_pad = -x_pad
+            xc = x_pad if same_clim else -xc
+        th, se = _clim_block(xc, tables, kclim, ndoy, pctile, smooth,
+                             smooth_w, patch_feb29)
+        if det_mask_np is not None:
+            m = torch.from_numpy(np.ascontiguousarray(
+                det_mask_np[lo:hi])).to(dev)
+            th = torch.where(m[None, :], th, nan)
+            se = torch.where(m[None, :], se, nan)
+        x = x_pad[:T]
+        if K is None:
+            n = count_events(x, th, doy_pos, min_duration, join_gaps,
+                             max_gap, day0_fillna_quirk, kernels)
+            K = cap(_round_k(int(n.max())))
+        tbl, nev, _, K = _detect_retry(x, th, se, doy_pos, K, cap, False,
+                                       det_kw)
+        parts = {("clim", "th"): th, ("clim", "se"): se,
+                 ("nev", "nev"): nev}
+        parts.update({("tbl", k): v for k, v in tbl.items()})
+        fetched = fetch_rows(parts)
+        nev = fetched[("nev", "nev")]
+        dropped += int(np.maximum(nev - K, 0).sum())
+        n_events[lo:hi] = np.minimum(nev, K)
+        out_t[:, lo:hi] = fetched[("clim", "th")]
+        out_s[:, lo:hi] = fetched[("clim", "se")]
+        ev_tables.put({k: fetched[("tbl", k)] for k in tbl}, lo, hi, K)
+    _warn_dropped(dropped, k_cap)
+    return out_t, out_s, ev_tables.arrays, n_events, {}
