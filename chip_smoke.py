@@ -9,13 +9,18 @@ Phases, one or more lines each:
 2. build: nvcc builds every kernel of xmhw_tpu_torch/csrc into one library;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes (40 daily years, T = 14,610; 4,096 cells;
-   K = 128 event slots), with CUDA-event times of both;
+   K = 128 event slots), with CUDA-event times of both. The running-bound
+   kernel (run_bound), which no path calls, is driven here only;
 4. reference: threshold() + detect() on a small grid, on the card (float32
    kernels) against the plain torch code on the CPU;
 5. slice: threshold(climatologyPeriod=[1983, 2012]) then detect() over a
    synthetic 40-year grid of 4,096 ocean cells; every kernel's launch
    counter must advance, events must be found and no event may be lost;
-6. fused: run_fused on the same data must reproduce the slice.
+6. stats: block_average() (one-year blocks with the ts/thresh/seas day
+   series, and 5-year blocks) and mhw_rank() of the slice on the card,
+   against the host numpy path;
+7. fused: run_fused on the same data, with its stats stage, must
+   reproduce the slice, its block_average and its mhw_rank.
 
 Then a JSON line with one entry per kernel, and last the line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -39,6 +44,12 @@ K = 128
 REPS = 5
 DEV = "cuda"
 TOL = {"thresh": 1e-6, "seas": 1e-5, "scan": 2e-3}  # atol; scan also rtol
+# stats against the host numpy path: day statistics are float64 on both
+# sides (rtol); event statistics are float32 tables summed in float32 on
+# the card and in float64 on the host (rtol = atol); counts and ranks exact
+STATS_TOL = {"day": 1e-9, "event": 1e-5}
+DAY_STATS = ("ts_mean", "ts_max", "ts_min")
+RANKED = ("intensity_max", "duration")
 
 
 def log(msg):
@@ -140,7 +151,7 @@ def phase_kernels(card):
 
     from xmhw_tpu_torch.core.calendar import build_window_ranges, compute_doy
     from xmhw_tpu_torch.core.clim import finish_clim
-    from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle
+    from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle, run_bound
     from xmhw_tpu_torch.xrlite import TimeIndex
 
     t = daily(T0, T1)
@@ -192,6 +203,27 @@ def phase_kernels(card):
         "xmhw_tpu/ops/pallas/rle.py:179", 0.0,
         lambda: rle.mhw_filter(bthresh, full=False),
         lambda: rle.mhw_filter_plain(bthresh, full=False))
+
+    # run_bound: no path calls it, so its launches are this check's
+    nb = ~bthresh
+    run_bound.run_bound.launches = 0
+    for mask in (bthresh, nb):
+        for fwd in (True, False):
+            if not torch.equal(run_bound.run_bound(mask, fwd),
+                               run_bound.run_bound_plain(mask, fwd)):
+                raise AssertionError(f"run_bound forward={fwd}: kernel != "
+                                     "plain")
+    launched = run_bound.run_bound.launches
+    row("run_bound", "xmhw_tpu_torch/csrc/run_bound.cu",
+        "xmhw_tpu/ops/pallas/run_bound.py:88", 0.0,
+        lambda: (run_bound.run_bound(nb, True),
+                 run_bound.run_bound(nb, False)),
+        lambda: (run_bound.run_bound_plain(nb, True),
+                 run_bound.run_bound_plain(nb, False)))
+    rows[-1].update(launches=launched, path="kernels phase only")
+    log("kernels: run_bound: forward and backward on the mask and its "
+        "negation equal the plain version; times are one forward + "
+        "backward pair")
 
     args3 = (xt, th, se, pos, fk["event_day"], fk["is_start"], K)
     Fk, Ik = detect_scan.event_stats(*args3)
@@ -330,11 +362,95 @@ def raw_counts(da, clim, ocean):
     return f["n_events"].cpu().numpy()
 
 
-def phase_fused(card, da, clim, mhw):
-    """run_fused (one upload per block) must reproduce the slice."""
+def day_series(da, clim):
+    """The dstime of block_average as detect's intermediate gives it: ts,
+    and thresh and seas on the time axis."""
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.xrlite import Dataset, TimeIndex
+
+    for d in ("lat", "lon"):
+        if not np.array_equal(clim["thresh"].coords[d].values,
+                              da.coords[d].values):
+            raise AssertionError(f"clim {d} differs from the series'")
+    doy, _ = compute_doy(TimeIndex(np.asarray(da.coords["time"].values)))
+    ds = Dataset()
+    ds["ts"] = da
+    for v in ("thresh", "seas"):
+        ds[v] = da.copy(data=clim[v].data[doy - 1])
+    return ds
+
+
+def stats_agree(got, want, what):
+    """Card vs host statistics: the same variables and NaN patterns,
+    counts exactly equal, floats within STATS_TOL. Returns the largest
+    |difference| of each kind."""
+    if sorted(got.keys()) != sorted(want.keys()):
+        raise AssertionError(f"{what}: variables {sorted(got.keys())} != "
+                             f"{sorted(want.keys())}")
+    errs = {"count": 0.0, "day": 0.0, "event": 0.0}
+    for k in want.keys():
+        a, b = _t(got[k].data), _t(want[k].data)
+        if k == "ecount" or k.endswith("_days"):
+            kind, atol, rtol = "count", 0.0, 0.0
+        elif k in DAY_STATS:
+            kind, atol, rtol = "day", 0.0, STATS_TOL["day"]
+        else:
+            kind, atol = "event", STATS_TOL["event"]
+            rtol = atol
+        errs[kind] = max(errs[kind], max_err(a, b, f"{what} {k}", atol,
+                                             rtol))
+    return errs
+
+
+def phase_stats(card, da, clim, mhw):
+    """block_average() and mhw_rank() of the slice on the card against the
+    host numpy path (device=False), as a user calls them."""
+    import torch
+
+    import xmhw_tpu_torch as xt
+
+    dstime = day_series(da, clim)
+    out = {}
+    for label, kw in (("years", dict(dstime=dstime)),
+                      ("5-year", dict(period=[1982, 2021], blockLength=5))):
+        t = time.perf_counter()
+        dev = xt.block_average(mhw, device=DEV, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = xt.block_average(mhw, device=False, **kw)
+        t2 = time.perf_counter()
+        errs = stats_agree(dev, host, f"block_average {label}")
+        log(f"stats: block_average {label} blocks {dev['ecount'].shape}: "
+            f"card {t1 - t:.3f} s, host {t2 - t1:.3f} s; max |diff| "
+            f"counts {errs['count']:.3g}, day {errs['day']:.3g}, event "
+            f"{errs['event']:.3g}  [{card}]")
+        out[label] = dev
+    t = time.perf_counter()
+    rank, ret = xt.mhw_rank(mhw, device=DEV)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hrank, hret = xt.mhw_rank(mhw, device=False)
+    t2 = time.perf_counter()
+    for k in hrank.keys():
+        for a, b, what in ((rank, hrank, "rank"), (ret, hret, "return")):
+            if not np.array_equal(a[k].data, b[k].data, equal_nan=True):
+                raise AssertionError(f"mhw_rank {what} {k}: card != host")
+    log(f"stats: mhw_rank of {len(hrank.keys())} variables: card "
+        f"{t1 - t:.3f} s, host {t2 - t1:.3f} s; ranks and return periods "
+        f"equal  [{card}]")
+    if not np.nansum(out["years"]["ecount"].data) > 0:
+        raise AssertionError("block_average counted no events")
+    out["rank"] = rank
+    return out
+
+
+def phase_fused(card, da, clim, mhw, stats):
+    """run_fused (one upload per block) with its stats stage must
+    reproduce the slice, its block_average and its mhw_rank."""
     from xmhw_tpu_torch.core.calendar import compute_doy
     from xmhw_tpu_torch.core.features_scan import TABLE_VARS
     from xmhw_tpu_torch.core.pipeline import run_fused
+    from xmhw_tpu_torch.core.stats import day_block_edges
     from xmhw_tpu_torch.xrlite import TimeIndex
 
     ocean = ocean_of(da)
@@ -342,12 +458,20 @@ def phase_fused(card, da, clim, mhw):
     doy, _ = compute_doy(TimeIndex(tvals))
     years = tvals.astype("datetime64[Y]").astype(int) + 1970
     sel = (years >= CLIM_YEARS[0]) & (years <= CLIM_YEARS[1])
+    bins = np.arange(years[0], years[-1] + 2)
     ts = np.ascontiguousarray(da.data[:, ocean])
+    reset_launches()
     t = time.perf_counter()
-    th, se, tables, nev, _ = run_fused(
+    th, se, tables, nev, extras = run_fused(
         ts, doy, (doy - 1).astype(np.int32), ts_clim_np=ts[sel],
-        doy_clim_np=doy[sel], device=DEV)
+        doy_clim_np=doy[sel], ybod_np=(years - bins[0]).astype(np.int32),
+        nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
+        count_nans=True, rank_names=RANKED, device=DEV)
     wall = time.perf_counter() - t
+    launches = read_launches()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by run_fused: {missing}")
     for name, a in (("thresh", th), ("seas", se)):
         if not np.array_equal(a, clim[name].data[:, ocean], equal_nan=True):
             raise AssertionError(f"fused {name} != slice")
@@ -362,8 +486,45 @@ def phase_fused(card, da, clim, mhw):
         b = np.asarray(mhw[k].data[:, ocean], np.float64)
         if not np.array_equal(a, b, equal_nan=True):
             raise AssertionError(f"fused table {k} != slice")
-    log(f"fused: run_fused reproduces the slice bit for bit "
-        f"({ts.shape[1]} cells in {wall:.3f} s)  [{card}]")
+    errs = fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax)
+    log(f"fused: run_fused reproduces the slice bit for bit and its "
+        f"block_average/mhw_rank (max |diff| {errs:.3g}; {ts.shape[1]} "
+        f"cells, {len(bins) - 1} year blocks, ranks of {list(RANKED)} in "
+        f"{wall:.3f} s; launches {launches})  [{card}]")
+
+
+def fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax):
+    """run_fused's extras against block_average/mhw_rank of the slice:
+    counts and ranks exactly equal, floats within rtol = atol = 1e-5 (the
+    fused stage reduces float32 on the card, the reference float64).
+    Returns the largest float |difference|."""
+    tol = STATS_TOL["event"]
+    ref = stats["years"]
+    worst = 0.0
+    for part in ("block", "day"):
+        for k, v in extras[part].items():
+            if k == "nan_days":
+                want = np.stack([np.isnan(ts[(years >= lo) & (years < hi)])
+                                 .sum(axis=0) for lo, hi in
+                                 zip(bins[:-1], bins[1:])])
+            else:
+                want = np.asarray(ref[k].data)[:, ocean]
+            if k == "ecount" or k.endswith("_days"):
+                if not np.array_equal(v, want):
+                    raise AssertionError(f"fused {part} {k} != reference")
+                continue
+            worst = max(worst, max_err(_t(v), _t(want), f"fused {part} {k}",
+                                       tol, tol))
+    missing = set(ref.keys()) - set(extras["block"]) - set(extras["day"])
+    if missing:
+        raise AssertionError(f"fused stats lack {sorted(missing)}")
+    for k in RANKED:
+        r = extras["rank"][k]
+        want = np.asarray(stats["rank"][k].data)[:, ocean]
+        if not (np.array_equal(r[:kmax], want, equal_nan=True)
+                and np.isnan(r[kmax:]).all()):
+            raise AssertionError(f"fused rank {k} != mhw_rank")
+    return worst
 
 
 def main():
@@ -381,9 +542,11 @@ def main():
     phase_reference(card)
     da = grid(daily(T0, T1), 64, 80, seed=3, land=64 * 80 - CELLS)
     clim, mhw, launches = phase_slice(card, da)
-    phase_fused(card, da, clim, mhw)
+    stats = phase_stats(card, da, clim, mhw)
+    phase_fused(card, da, clim, mhw, stats)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        if r["name"] in launches:  # run_bound: counted in phase_kernels
+            r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Public API of the PyTorch port against the JAX package on a small grid.
 
-threshold(), detect() and run_fused run on the CPU (device="cpu", the
-plain torch code) and are compared with xmhw_tpu on the same numpy data:
+threshold(), detect() and run_fused (with its stats stage) run on the
+CPU (device="cpu", the plain torch code) and are compared with xmhw_tpu
+on the same numpy data:
 every output variable, its dims, coordinates and attributes. detect() is
 fed the JAX package's climatology. Tolerances: climatology as in
 test_torch_clim.py, event tables as in test_torch_detect.py (times,
@@ -152,9 +153,51 @@ def test_run_fused_matches_jax(grid, cold):
     for k in ja[2]:
         np.testing.assert_allclose(tb[2][k], ja[2][k], rtol=1e-8, atol=1e-8,
                                    equal_nan=True, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tpipe.run_fused(ts, doy, (doy - 1).astype(np.int32), nbins=2,
-                        device="cpu")
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_run_fused_stats_matches_jax(grid, cold):
+    """run_fused's stats stage (block and day statistics, ranks) against
+    the JAX package's, float64: a raw day series beside the detection
+    series, a period shorter than the record, a masked cell and several
+    cell blocks. Tables to 1e-8, block and day stats rtol 1e-9, ranks
+    exactly equal."""
+    from xmhw_tpu.core.stats import day_block_edges
+
+    ts = np.asarray(xm.land_check(grid).data, np.float64)
+    tvals = np.asarray(grid.coords["time"].values)
+    doy, _ = compute_doy(TimeIndex(tvals))
+    years = tvals.astype("datetime64[Y]").astype(int) + 1970
+    bins = np.arange(2001, 2004)     # 2003 lies outside the period
+    ybod = np.where(years < bins[-1], years - bins[0], -1).astype(np.int32)
+    ts_day = ts.copy()
+    ts_day[200:230, 6] = np.nan
+    mask = np.ones(ts.shape[1], bool)
+    mask[3] = False
+    kw = dict(ts_day_np=ts_day, ybod_np=ybod, nbins=len(bins) - 1,
+              day_edges=day_block_edges(years, bins), count_nans=True,
+              rank_names=("intensity_max", "duration", "rate_onset"),
+              det_mask_np=mask, cold_spells=cold, block=16)
+    pos = (doy - 1).astype(np.int32)
+    ja = jpipe.run_fused(ts, doy, pos, **kw)
+    tb = tpipe.run_fused(ts, doy, pos, device="cpu", **kw)
+    np.testing.assert_array_equal(tb[3], ja[3])
+    for k in ja[2]:
+        np.testing.assert_allclose(tb[2][k], ja[2][k], rtol=1e-8, atol=1e-8,
+                                   equal_nan=True, err_msg=k)
+    assert sorted(tb[4]) == sorted(ja[4]) == ["block", "day", "rank"]
+    for part, want in ja[4].items():
+        got = tb[4][part]
+        assert sorted(got) == sorted(want), part
+        for k, v in want.items():
+            assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+            if part == "rank" or k == "ecount" or k.endswith("_days"):
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], v, rtol=1e-9, atol=0,
+                                           equal_nan=True, err_msg=k)
+    assert np.nansum(tb[4]["block"]["ecount"]) > 20
+    assert tb[4]["day"]["nan_days"][:, 6].sum() == 30
 
 
 def test_flip_cold_and_validation(grid):

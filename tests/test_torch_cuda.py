@@ -6,9 +6,13 @@ PyTorch is installed; run it on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: the RLE exact; clim thresholds exact and means within 1e-5
-(both sum in float64, in different orders); the event scan's counts and
-positions exact and its floats within rtol = atol = 2e-3.
+Tolerances: the RLE and the running bound exact; clim thresholds exact
+and means within 1e-5 (both sum in float64, in different orders); the
+event scan's counts and positions exact and its floats within rtol =
+atol = 2e-3. block_average/mhw_rank on the card against the host numpy
+path: counts and ranks exact, day statistics rtol 1e-9 (both float64),
+event statistics rtol = atol = 1e-5 (float32 tables on the card, float64
+sums on the host).
 """
 
 import shutil
@@ -22,8 +26,10 @@ torch.set_num_threads(2)
 from xmhw_tpu_torch.core import pipeline  # noqa: E402
 from xmhw_tpu_torch.core.calendar import (build_window_ranges,  # noqa: E402
                                           compute_doy)
+import xmhw_tpu_torch as xt  # noqa: E402
 from xmhw_tpu_torch.ops import _build, detect_scan, doy_quantile, rle  # noqa
-from xmhw_tpu_torch.xrlite import TimeIndex  # noqa: E402
+from xmhw_tpu_torch.ops import run_bound  # noqa: E402
+from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
 
 pytestmark = pytest.mark.cuda
 
@@ -164,6 +170,80 @@ def test_pipeline_on_card_matches_cpu(dev):
                                    equal_nan=True, err_msg=k)
 
 
+@pytest.mark.parametrize("T,C", [(3001, 300), (1, 33), (1024, 4096)])
+def test_run_bound_kernel_bit_equal(dev, T, C):
+    rng = np.random.default_rng(T)
+    m = torch.from_numpy(rng.random((T, C)) > 0.6).to(dev)
+    m[:, 0] = False
+    m[:, -1] = True
+    before = run_bound.run_bound.launches
+    for mask in (m, ~m):
+        for forward in (True, False):
+            k = run_bound.run_bound(mask, forward)
+            p = run_bound.run_bound_plain(mask, forward)
+            assert k.dtype == torch.int32
+            assert torch.equal(k, p), (forward, T, C)
+    torch.cuda.synchronize()
+    assert run_bound.run_bound.launches == before + 4
+
+
+def stats_events(dev):
+    """threshold() + detect() (float32 kernels) of a 5-year 6 x 7 grid on
+    the card, compact and union layouts, and the ts/thresh/seas dstime."""
+    t = np.arange("2001-01-01", "2006-01-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    T = len(t)
+    rng = np.random.default_rng(6)
+    day = np.arange(T)[:, None, None]
+    ts = (15 + 3 * np.sin(2 * np.pi * day / 365.25)
+          + np.cumsum(rng.normal(0, 0.3, (T, 6, 7)), 0) * 0.2)
+    ts[:, 0, 0] = np.nan
+    ts[50:52, 2, 3] = np.nan
+    da = DataArray(ts.astype(np.float32), ("time", "lat", "lon"),
+                   {"time": Coord(("time",), t),
+                    "lat": Coord(("lat",), np.arange(6.0)),
+                    "lon": Coord(("lon",), np.arange(7.0))})
+    clim = xt.threshold(da, device=dev)
+    mhw, inter = xt.detect(da, clim["thresh"], clim["seas"], device=dev,
+                           intermediate=True, events_layout="compact")
+    union = xt.detect(da, clim["thresh"], clim["seas"], device=dev)
+    return da, mhw, union, inter
+
+
+def stats_close(got, want):
+    assert sorted(got.keys()) == sorted(want.keys())
+    for k in want.keys():
+        a = np.asarray(got[k].data, np.float64)
+        b = np.asarray(want[k].data, np.float64)
+        assert np.array_equal(np.isnan(a), np.isnan(b)), k
+        if k == "ecount" or k.endswith("_days"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        elif k.startswith("ts_"):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=0,
+                                       equal_nan=True, err_msg=k)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                       equal_nan=True, err_msg=k)
+
+
+def test_stats_on_card_match_host(dev):
+    da, mhw, union, inter = stats_events(dev)
+    for ev in (mhw, union):
+        assert np.isfinite(np.asarray(ev["duration"].data)).sum() > 20
+        for kw in (dict(period=[2001, 2005]), dict(dstime=da),
+                   dict(dstime=inter, removeMissing=True),
+                   dict(dstime=inter, blockLength=2)):
+            stats_close(xt.block_average(ev, device="cuda", **kw),
+                        xt.block_average(ev, device=False, **kw))
+        stats_close(xt.block_average(ev, period=[2001, 2005], device=True),
+                    xt.block_average(ev, period=[2001, 2005]))
+        rk, rp = xt.mhw_rank(ev, device="cuda")
+        hk, hp = xt.mhw_rank(ev, device=False)
+        for k in hk.keys():
+            np.testing.assert_array_equal(rk[k].data, hk[k].data, err_msg=k)
+            np.testing.assert_array_equal(rp[k].data, hp[k].data, err_msg=k)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((10, 4), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
@@ -172,6 +252,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rle.mhw_filter(x)
     with pytest.raises(TypeError):
         detect_scan.event_stats(x, x, x, x, x, x, 4)
+    with pytest.raises(TypeError):
+        run_bound.run_bound(x)
+    with pytest.raises(TypeError):  # not contiguous
+        run_bound.run_bound(torch.zeros((4, 10), dtype=torch.bool,
+                                        device=dev).t())
 
 
 def test_broken_source_build_raises(dev, tmp_path, monkeypatch):

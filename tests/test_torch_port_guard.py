@@ -1,7 +1,9 @@
 """Guards on the PyTorch port's boundaries.
 
 * The pure-numpy host modules are copies of the JAX package's: they must
-  not drift apart (import lines aside).
+  not drift apart (import lines aside). Where a module is only partly
+  numpy (stats_api.py, identify.py), each copied function and module
+  constant must have the original's syntax tree.
 * Importing the port loads neither JAX nor the JAX package.
 * device="cuda" without a GPU raises; it never runs on the CPU quietly.
 * A failing nvcc build raises with the compiler's own message.
@@ -24,12 +26,36 @@ from xmhw_tpu_torch.ops import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["annotate.py", "exception.py", "core/calendar.py", "core/point.py",
-          "xrlite/__init__.py", "xrlite/adapt.py", "xrlite/alloc.py",
-          "xrlite/dataarray.py", "xrlite/export.py", "xrlite/netcdf.py",
-          "xrlite/timeutils.py"]
-# the one non-import line a copy changes: its array handoff to torch
-SUBS = {"xrlite/dataarray.py": [("jnp.asarray(flat)",
-                                 "torch.as_tensor(flat)")]}
+          "features.py", "stats.py", "xmhw.py", "xrlite/__init__.py",
+          "xrlite/adapt.py", "xrlite/alloc.py", "xrlite/dataarray.py",
+          "xrlite/export.py", "xrlite/netcdf.py", "xrlite/timeutils.py"]
+# the non-import lines a copy changes: its array handoff to torch, the
+# package name in a shim's docstring, calc_clim's device argument
+SUBS = {
+    "xrlite/dataarray.py": [("jnp.asarray(flat)", "torch.as_tensor(flat)")],
+    "features.py": [("from xmhw_tpu.", "from xmhw_tpu_torch.")],
+    "stats.py": [("from xmhw_tpu.", "from xmhw_tpu_torch.")],
+    "xmhw.py": [
+        ("from xmhw_tpu.", "from xmhw_tpu_torch."),
+        ("skipna=False, dtype=None):",
+         'skipna=False, dtype=None, device="cuda"):'),
+        ("DataArrays on the 'doy' dimension.\n",
+         "DataArrays on the 'doy' dimension. ``device``: where it runs\n"
+         '    (default ``"cuda"``), as in threshold().\n'),
+        ("patch_feb29=not tstep)", "patch_feb29=not tstep, device=device)"),
+    ],
+}
+# partly-numpy modules: the top-level functions that are ported to torch
+# (everything else must be a copy); _block_ts_stats is a copy that hands
+# the device on to _block_ts_stats_device
+PORTED = {
+    "stats_api.py": {"block_average", "mhw_rank", "_block_ts_stats_device",
+                     "_rank_device", "_stats_device"},
+    "identify.py": {"runavg", "mhw_filter"},
+}
+FN_SUBS = {"stats_api.py": [("years_coord, removeMissing)\n        dy_idx",
+                             "years_coord, removeMissing,\n"
+                             "                device)\n        dy_idx")]}
 
 
 def code_lines(path, subs=()):
@@ -51,6 +77,34 @@ def test_copied_module_matches_original(rel):
     assert port == orig, f"xmhw_tpu_torch/{rel} drifted from xmhw_tpu/{rel}"
 
 
+def top_level(path, subs=()):
+    """Module-level functions and assignments -> their dumped syntax
+    trees (comments aside)."""
+    src = path.read_text()
+    for a, b in subs:
+        assert a in src, a
+        src = src.replace(a, b)
+    out = {}
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            out[ast.unparse(node.targets)] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PORTED))
+def test_copied_functions_match_original(rel):
+    orig = top_level(ROOT / "xmhw_tpu" / rel, FN_SUBS.get(rel, ()))
+    port = top_level(ROOT / "xmhw_tpu_torch" / rel)
+    assert PORTED[rel] <= set(port), sorted(PORTED[rel] - set(port))
+    copied = sorted(set(orig) - PORTED[rel])
+    assert copied and set(copied) <= set(port), sorted(set(copied)
+                                                      - set(port))
+    drifted = [n for n in copied if port[n] != orig[n]]
+    assert not drifted, f"xmhw_tpu_torch/{rel}: {drifted} drifted"
+
+
 def test_port_imports_no_jax():
     for path in (ROOT / "xmhw_tpu_torch").rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -61,7 +115,10 @@ def test_port_imports_no_jax():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "xmhw_tpu"), f"{path}: {n}"
-    code = ("import sys, xmhw_tpu_torch, xmhw_tpu_torch.core.pipeline; "
+    code = ("import sys, xmhw_tpu_torch, xmhw_tpu_torch.core.pipeline, "
+            "xmhw_tpu_torch.identify, xmhw_tpu_torch.stats, "
+            "xmhw_tpu_torch.features, xmhw_tpu_torch.xmhw, "
+            "xmhw_tpu_torch.ops.run_bound; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xmhw_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -87,6 +144,11 @@ def test_cuda_without_gpu_raises():
         xt.threshold(da)  # the default device is "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         xt.detect(da, da, da, device="cuda")
+    for dev in ("cuda", True):
+        with pytest.raises(RuntimeError, match="cuda"):
+            xt.block_average(da, period=[2001, 2001], device=dev)
+        with pytest.raises(RuntimeError, match="cuda"):
+            xt.mhw_rank(da, device=dev)
 
 
 def test_build_failure_raises_nvcc_message(tmp_path, monkeypatch):

@@ -7,8 +7,9 @@ dtype (:func:`fetch_rows`).
 
 float32 on the GPU runs the three CUDA kernels (clim percentile, event
 RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
-code. CPU tensors always take the plain versions. There is no device
-mesh: ``mesh``/``use_mesh`` accept only None/False.
+code. The stats stage of :func:`run_fused` is torch reductions
+(core/stats.py). CPU tensors always take the plain versions. There is no
+device mesh: ``mesh``/``use_mesh`` accept only None/False.
 """
 
 from __future__ import annotations
@@ -259,29 +260,111 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     return tables.arrays, n_events, inter_out
 
 
+def fused_stats(table, ts, th, se, doy_pos, ybod, nbins, day_edges,
+                count_nans, rank_names, cold):
+    """The stats layer on a device-resident detect output: the year-block
+    event aggregations (reference: xmhw/stats.py:322-363), the per-day
+    ts/category block stats (stats.py:366-428) and the per-cell ordinal
+    ranks (stats.py:446-510), without the event tables or the day series
+    leaving the device. Port of ``xmhw_tpu.core.pipeline.
+    fused_stats_kernel``.
+
+    ``table``: detect_kernel's dict of (K, B) tensors. ``ts``: the
+    ORIGINAL (un-negated) (T, B) series: day stats run on the input
+    values even for cold spells, as in the staged pipeline where
+    block_average reads the raw SST file. ``ybod``: (T,) int32 year bin
+    of each day, -1 outside the period. ``rank_names``: table variables
+    to rank (empty: no ranks). ``cold``: negate the intensities (not the
+    variances) before aggregating and ranking, as flip_cold does to the
+    staged detect output (reference: xmhw/features.py:298-315).
+    Returns {"block": {...}, "day": {...}, "rank": {...}} for the
+    enabled stages.
+    """
+    from .stats import (EVENT_VARS, binned_day_stats, binned_event_stats,
+                        category_index, rank_events_desc)
+
+    T, dt = ts.shape[0], ts.dtype
+
+    def flip(name, v):
+        if cold and "intensity" in name and "_var" not in name:
+            return -v
+        return v
+
+    out = {}
+    if nbins:
+        tstart = table["time_start"]
+        bin_idx = ybod[torch.clamp(tstart, 0, T - 1).long()]
+        valid = (tstart >= 0) & (bin_idx >= 0)
+        vals = torch.stack([flip(k, table[k]).to(dt) for k in EVENT_VARS])
+        out["block"] = binned_event_stats(
+            vals, torch.clamp(bin_idx, 0, nbins - 1), valid, nbins)
+        pos = doy_pos.long()
+        cats = category_index(ts, th[pos], se[pos])
+        out["day"] = binned_day_stats(ts, cats, day_edges, with_cats=True,
+                                      count_nans=count_nans)
+    if rank_names:
+        ones = torch.ones(table["time_start"].shape, dtype=torch.bool,
+                          device=ts.device)
+        out["rank"] = {k: rank_events_desc(flip(k, table[k]).to(dt), ones)
+                       for k in rank_names}
+    return out
+
+
+class _Extras:
+    """Host stats of run_fused, filled block by block: (rows, C) arrays
+    per part; the host fill is 0.0 for ``*_days`` and NaN otherwise, and
+    the rank rows grow with K."""
+
+    def __init__(self, C):
+        self.C = C
+        self.parts = {}
+
+    def put(self, st_h, lo, hi):
+        from ..xrlite.alloc import alloc_filled
+
+        for part, d in st_h.items():
+            rows = self.parts.setdefault(part, {})
+            for k, v in d.items():
+                old = rows.get(k)
+                if old is None or old.shape[0] < v.shape[0]:
+                    grown = alloc_filled(
+                        (v.shape[0], self.C), 0.0 if str(k).endswith("_days")
+                        else np.nan, v.dtype)
+                    if old is not None:
+                        grown[:old.shape[0]] = old
+                    rows[k] = grown
+                rows[k][:v.shape[0], lo:hi] = v
+
+
 def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
               smooth=True, smooth_w=31, patch_feb29=True, min_duration=5,
               join_gaps=True, max_gap=2, day0_fillna_quirk=False,
               cold_spells=False, ts_clim_np=None, doy_clim_np=None,
-              nbins=0, rank_names=(), det_mask_np=None, block=None,
+              ts_day_np=None, ybod_np=None, nbins=0, day_edges=None,
+              count_nans=False, rank_names=(), det_mask_np=None, block=None,
               mesh=None, k_min=None, k_cap=None, use_kernels=None,
               device="cuda"):
-    """Climatology + detection with one upload per cell block: the
-    climatology never leaves the device before detection uses it.
+    """Climatology + detection + year-block stats + ranks with one upload
+    per cell block: every stage consumes the previous stage's
+    device-resident output, replacing the reference's staged workflow
+    (threshold -> detect -> block_average -> mhw_rank,
+    docs/gettingstarted.rst:158-188).
 
-    ``ts_np``: (T, C) original series (not negated). ``ts_clim_np``/
-    ``doy_clim_np``: optional climatologyPeriod subset for the
-    climatology stage (default: the full series). ``det_mask_np``: (C,)
-    bool, cells where it is False are excluded from detection (NaN
-    thresholds and seasonal means, so no events). The
-    year-block statistics and ranks of the JAX package (``nbins``,
-    ``rank_names``) are not ported yet.
+    ``ts_np``: (T, C) original series (not negated; pass
+    ``maxPadLength``-interpolated data here and the raw series as
+    ``ts_day_np`` to reproduce the staged stats semantics).
+    ``ts_clim_np``/``doy_clim_np``: optional climatologyPeriod subset for
+    the climatology stage (default: the full series). ``ybod_np``: (T,)
+    int32 year bin of each day (-1 outside the period); with
+    ``nbins``/``day_edges`` it enables the stats stage (``count_nans``
+    adds the ``nan_days`` row). ``rank_names``: table variables to rank.
+    ``det_mask_np``: (C,) bool, cells where it is False are excluded from
+    detection (NaN thresholds and seasonal means, so no events and NaN
+    categories, while their day stats still compute).
 
-    Returns (th, se, tables, n_events, extras) with ``extras`` empty.
+    Returns (th, se, tables, n_events, extras) where extras holds numpy
+    "block"/"day"/"rank" dicts for the enabled stages.
     """
-    if nbins or rank_names:
-        raise NotImplementedError(
-            "run_fused stats (nbins/rank_names) are not ported yet")
     _no_mesh(mesh, False)
     dev = resolve_device(device)
     T, C = ts_np.shape
@@ -298,10 +381,13 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
                   max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
                   use_kernels=kernels)
     doy_pos = torch.from_numpy(np.asarray(doy_pos_np, np.int32)).to(dev)
+    ybod = (torch.from_numpy(np.asarray(ybod_np, np.int32)).to(dev)
+            if nbins else None)
     out_t = np.empty((ndoy, C), ts_np.dtype)
     out_s = np.empty((ndoy, C), ts_np.dtype)
     n_events = np.zeros(C, np.int32)
     ev_tables = _Tables(C)
+    extras = _Extras(C)
     dropped = 0
     K = cap(_round_k(int(k_min))) if k_min else None
     B = _block_size(C, block)
@@ -314,6 +400,8 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
                        pad_rows=tables["rmax"] if same_clim else 0)
         xc = x_pad if same_clim else upload(ts_clim_np, lo, hi, dev,
                                             pad_rows=tables["rmax"])
+        x_day = (upload(ts_day_np, lo, hi, dev) if ts_day_np is not None
+                 else x_pad[:T])
         if cold_spells:
             x_pad = -x_pad
             xc = x_pad if same_clim else -xc
@@ -331,9 +419,15 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
             K = cap(_round_k(int(n.max())))
         tbl, nev, _, K = _detect_retry(x, th, se, doy_pos, K, cap, False,
                                        det_kw)
+        st = (fused_stats(tbl, x_day, th, se, doy_pos, ybod, nbins,
+                          day_edges, count_nans, tuple(rank_names),
+                          cold_spells)
+              if nbins or rank_names else {})
         parts = {("clim", "th"): th, ("clim", "se"): se,
                  ("nev", "nev"): nev}
         parts.update({("tbl", k): v for k, v in tbl.items()})
+        for part, d in st.items():
+            parts.update({(part, k): v for k, v in d.items()})
         fetched = fetch_rows(parts)
         nev = fetched[("nev", "nev")]
         dropped += int(np.maximum(nev - K, 0).sum())
@@ -341,5 +435,7 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
         out_t[:, lo:hi] = fetched[("clim", "th")]
         out_s[:, lo:hi] = fetched[("clim", "se")]
         ev_tables.put({k: fetched[("tbl", k)] for k in tbl}, lo, hi, K)
+        extras.put({part: {k: fetched[(part, k)] for k in d}
+                    for part, d in st.items()}, lo, hi)
     _warn_dropped(dropped, k_cap)
-    return out_t, out_s, ev_tables.arrays, n_events, {}
+    return out_t, out_s, ev_tables.arrays, n_events, extras.parts

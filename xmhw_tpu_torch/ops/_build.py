@@ -37,6 +37,7 @@ SIGNATURES = {
     "xmhw_rle": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                  _P),
     "xmhw_event_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "xmhw_run_bound": (_P, _I, _I, _I, _P, _P),
 }
 
 
