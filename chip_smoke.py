@@ -10,7 +10,9 @@ Phases, one or more lines each:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes (40 daily years, T = 14,610; 4,096 cells;
    K = 128 event slots), with CUDA-event times of both. The running-bound
-   kernel (run_bound), which no path calls, is driven here only;
+   kernel (run_bound), which no path calls, is driven here only. The
+   event scan runs again on events that cross every one of its time
+   segments' edges;
 4. reference: threshold() + detect() on a small grid, on the card (float32
    kernels) against the plain torch code on the CPU;
 5. slice: threshold(climatologyPeriod=[1983, 2012]) then detect() over a
@@ -235,7 +237,64 @@ def phase_kernels(card):
         "xmhw_tpu/ops/pallas/detect_scan.py:336", err,
         lambda: detect_scan.event_stats(*args3),
         lambda: detect_scan.event_stats_plain(*args3))
+    scan_edges(card, xt, th, se, pos)
     return rows
+
+
+def edge_mask(T, C, warps):
+    """(T, C) bool: a run across every segment edge of the event-scan
+    kernel (warps segments of ceil(T / warps) days) in every cell, starting
+    1-5 days before the edge, and a run over three segments in every 64th
+    cell."""
+    L = -(-T // warps)
+    m = np.zeros((T, C), bool)
+    c = np.arange(C)
+    for e in range(L, T, L):
+        s, n = e - 1 - c % 5, 6 + c % 13
+        for d in range(n.max()):
+            ok = (d < n) & (s + d < T)
+            m[(s + d)[ok], c[ok]] = True
+    m[L // 2:L // 2 + int(3.3 * L), ::64] = True
+    return m
+
+
+def scan_edges(card, xt, th, se, pos):
+    """The event scan on events that cross every segment edge of the
+    kernel, at the main path's shapes: kernel against plain, and times."""
+    import torch
+
+    from xmhw_tpu_torch.ops import detect_scan, rle
+
+    cfg = detect_scan.launch_config()
+    T, C = xt.shape
+    L = -(-T // cfg["warps"])
+    log(f"kernels: detect_scan launch: {cfg['warps']} warps (time "
+        f"segments of {L} days) per block, {cfg['threads']} threads, "
+        f"{cfg['smem_bytes']} B of dynamic shared memory, {-(-C // 32)} "
+        "blocks")
+    th_t = th.index_select(0, pos.long())
+    m = torch.from_numpy(edge_mask(T, C, cfg["warps"])).to(DEV)
+    xe = torch.where(m, torch.maximum(xt, th_t) + 0.3, xt)
+    f = rle.mhw_filter_plain(xe > th_t, full=False)
+    day = f["event_day"]
+    E = torch.arange(L, T, L, device=DEV)
+    live = ~torch.isnan(xt).all(dim=0)
+    if not bool((day[E - 1] & day[E])[:, live].all()):
+        raise AssertionError("segment-edge mask: an edge without an event")
+    args = (xe, th, se, pos, day, f["is_start"], K)
+    Fk, Ik = detect_scan.event_stats(*args)
+    Fp, Ip = detect_scan.event_stats_plain(*args)
+    if not torch.equal(Ik, Ip):
+        raise AssertionError("event_scan edges positions: kernel != plain")
+    err = max_err(Fk, Fp, "event_scan edges floats", TOL["scan"],
+                  TOL["scan"])
+    ms = cuda_ms(lambda: detect_scan.event_stats(*args))
+    pms = cuda_ms(lambda: detect_scan.event_stats_plain(*args))
+    log(f"kernels: detect_scan on events across all {len(E)} segment edges "
+        f"of {int(live.sum())} cells ({int(f['n_events'].sum())} events, "
+        f"at most {int(f['n_events'].max())} in a cell, K = {K}): positions "
+        f"equal, max |err| {err:.3g}, kernel {ms:.3f} ms, plain {pms:.3f} "
+        f"ms  [{card}]")
 
 
 def ocean_of(da):

@@ -30,6 +30,7 @@ import xmhw_tpu_torch as xt  # noqa: E402
 from xmhw_tpu_torch.ops import _build, detect_scan, doy_quantile, rle  # noqa
 from xmhw_tpu_torch.ops import run_bound  # noqa: E402
 from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
+import test_torch_scan_edges as edges  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -132,16 +133,32 @@ def scan_case(dev, name):
             for a in (ts, th, se)] + [torch.from_numpy(doy_pos).to(dev)]
 
 
-@pytest.mark.parametrize("case", ["walk", "dense"])
-@pytest.mark.parametrize("K", [128, 3])
+SCAN_CASES = ([(K, c) for c in ("walk", "dense") for K in (128, 3)]
+              + [(edges.CASES[n].K, n) for n in edges.CASES])
+
+
+@pytest.mark.parametrize("K,case", SCAN_CASES,
+                         ids=[f"{K}-{c}" for K, c in SCAN_CASES])
 def test_event_scan_kernel_matches_plain(dev, case, K):
-    ts, th, se, pos = scan_case(dev, case)
-    f = rle.mhw_filter_plain(ts > th[pos.long()])
-    assert int(f["n_events"].max()) > (K if K < 10 else 10)
+    """The random walk and the dense pattern, then the segment-edge cases
+    of tests/test_torch_scan_edges.py at their card shapes."""
+    kw = {}
+    if case in edges.CASES:
+        assert detect_scan.launch_config()["warps"] == edges.WARPS
+        cs = edges.CASES[case]
+        ts, th, se, pos = (torch.from_numpy(a).to(dev) for a in
+                           edges.edge_inputs(case, cs.T_card, cs.C_card))
+        kw = cs.rle
+    else:
+        ts, th, se, pos = scan_case(dev, case)
+    f = rle.mhw_filter_plain(ts > th[pos.long()], **kw)
+    if case not in edges.CASES:
+        assert int(f["n_events"].max()) > (K if K < 10 else 10)
     args = (ts, th, se, pos, f["event_day"], f["is_start"], K)
     before = detect_scan.event_stats.launches
     Fk, Ik = detect_scan.event_stats(*args)
     Fp, Ip = detect_scan.event_stats_plain(*args)
+    torch.cuda.synchronize()
     assert detect_scan.event_stats.launches == before + 1
     assert torch.equal(Ik, Ip)
     for i, ch in enumerate(detect_scan.F_CHANNELS):

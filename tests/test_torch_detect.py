@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from xmhw_tpu.core import features_scan as jfs  # noqa: E402
 from xmhw_tpu_torch.core import features_scan as tfs  # noqa: E402
 from xmhw_tpu_torch.ops import detect_scan  # noqa: E402
+import test_torch_scan_edges as edges  # noqa: E402
 
 EXACT = {"event", "index_start", "index_end", "index_peak", "time_start",
          "time_end", "time_peak", "duration", "duration_moderate",
@@ -148,3 +149,15 @@ def test_detect_nan_seas_on_start_day():
     b = tb[0]
     np.testing.assert_array_equal(b["time_start"][0].numpy(), [100] * C)
     assert np.isnan(b["intensity_max"][0].numpy()).sum() == 0
+
+
+@pytest.mark.parametrize("name", list(edges.CASES))
+def test_detect_segment_edge_cases(name):
+    """The inputs that stress the event-scan kernel's time segments
+    (tests/test_torch_scan_edges.py) at their CPU shapes: the port's plain
+    path against the JAX package, float32, rtol = atol = 2e-3."""
+    case = edges.CASES[name]
+    ts, th, se, doy_pos = edges.edge_inputs(name, case.T_cpu, case.C_cpu)
+    ja, tb = run_both(ts, th, se, doy_pos, K=case.K, **case.rle)
+    assert int(tb[1].sum()) > 0
+    compare(ja, tb, np.float32)

@@ -1,4 +1,5 @@
-// Per-event statistics of the 31-variable event table in one forward scan.
+// Per-event statistics of the 31-variable event table in one forward scan,
+// split over time.
 //
 // Replaces the TPU kernel fused_detect_scans (xmhw_tpu/ops/pallas/
 // detect_scan.py, body _kernel) together with the end counting and the
@@ -11,27 +12,52 @@
 // first finite anomaly of the day before and the last finite anomaly of
 // the day after an event day; and the event's start and end rows.
 //
-// What bounds it on the H100: device memory reads and, with one thread
-// per cell, latency. Per (day, cell) it reads ts (4 bytes), event_day and
-// is_start (1 byte each) from DRAM and thresh/seas through doy_pos from
-// the (ndoy, C) climatology, which stays in L2: ~0.35 GB of DRAM reads per
-// 14,610 x 4,096 block. Writes are (30 + 3) x K x C words, written once.
+// What bounds it on the H100: each day depends on the one before through
+// ~35 registers of event state, and an event day costs a few hundred
+// instructions; a warp of 32 cells has an event lane on ~90 % of days.
+// DRAM traffic is small: ~0.43 GB per 14,610 x 4,096 block (ts 4 bytes,
+// event_day and is_start 1 byte each per (day, cell), thresh/seas through
+// doy_pos from the (ndoy, C) climatology in L2, (30 + 3) x K x C output
+// words), ~0.13 ms at 3.35 TB/s. One thread per cell walking all of time
+// gives a 4,096-cell block 128 warps, one per SM: latency bound.
 //
-// Design: one thread per cell walks time forward; neighbouring threads
-// take neighbouring cells, so each time row is one coalesced read. The
-// carried values live in registers and reset at is_start. At an event's
-// last day (day[t] && (t == T-1 || !day[t+1])) the thread writes the
-// event's results straight into slot (channel, k, cell) of the
-// (30, K, C) float and (3, K, C) int outputs, with k = (starts seen) - 1
-// (the RLE kernel's slot, counted in a register instead of read back) and
-// only if k < K. This takes the place of the TPU path's state array, its
-// counting and its gather. Variances use Welford's update per event, so
-// no per-cell shift constants (and no first pass) are needed. The start
-// row is carried explicitly from is_start, never read back from the
-// first-finite-relSeas channel. Rows are loaded in batches of 8 (plus one
-// row of lookahead for day[t+1] and the next day's anomaly) so that ~50
-// loads are in flight per thread. Slots from min(n_events, K) to K-1 are
-// filled with NaN / -1.
+// Design: a block owns 32 cells, one per lane, and kWarps warps; warp w
+// owns days [w L, (w+1) L), L = ceil(T / kWarps), so a 4,096-cell block
+// runs 16 warps per SM. Neighbouring lanes read neighbouring cells, so
+// every row is one coalesced read. Per block:
+//  1. each warp counts is_start in its segment; an exclusive prefix of the
+//     counts over the warps (shared memory) gives the segment's first slot;
+//  2. each warp walks its segment forward with the event state in
+//     registers, reading the anomaly of the day before the segment first
+//     and the row after it as lookahead, so "last day" (!day[t+1]) and the
+//     next-day anomaly are right across the edge. An event that starts and
+//     ends in the segment goes, if its slot k < K, as one 36-word record
+//     (9 float4 stores) to the block's (K, 32 cells) records in scratch
+//     memory. The segment's two partial events go to shared memory: the
+//     head (an event open on its first day, up to its close or the
+//     segment's end) and the tail (an event still open on its last day);
+//  3. warp 0 walks the segments in order, merges each tail with the
+//     following heads until the event closes and writes its record (if
+//     k < K). Every channel merges associatively: counts and sums add,
+//     shifted sums are rebased onto the left shift, the relSeas maximum
+//     keeps the left argmax unless the right one is strictly greater,
+//     first-finite values come from the left if it has one, last-finite
+//     values from the right if it has one, the start from the left, the
+//     end is the day the head closed;
+//  4. the block copies its records to the (30, K, C) float and (3, K, C)
+//     int outputs, one coalesced row of 32 cells per store, and fills slots
+//     min(n_events, K) .. K-1 with NaN / -1. (Storing 33 scattered words
+//     per event straight into those outputs cost ~0.3 ms more.)
+// Moments are sums shifted by the event's first finite value, n,
+// sum(x - k) and sum((x - k)^2): no division per day (Welford's update
+// cost ~13 % more) and no per-cell shift constants. The start row is
+// carried explicitly from is_start, never read back from the
+// first-finite-relSeas channel. Each chunk of 8 rows (plus one row of
+// lookahead) is loaded at once into lane-private shared memory and walked
+// by a loop that is not unrolled: unrolled over the chunk, the walk was
+// ~6,900 SASS instructions and 2.3x slower. The head and tail states of
+// 32 cells x 16 warps (143 KB) and the staged rows (55 KB) fill one SM's
+// shared memory, so one block runs per SM (128 blocks for 132 SMs).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,41 +65,59 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kChunk = 8;  // rows per batched load
-constexpr int kNF = 30;    // float channels, see ops/detect_scan.py
-constexpr int kNI = 3;     // int channels: start, end, peak
+constexpr int kLanes = 32;  // cells per block, one per lane
+constexpr int kWarps = 16;  // time segments per block, one per warp
+constexpr int kThreads = kLanes * kWarps;
+constexpr int kChunk = 8;   // rows per batched load
+constexpr int kNF = 30;     // float channels, see ops/detect_scan.py
+constexpr int kNI = 3;      // int channels: start, end, peak
+constexpr int kRec = 9;     // float4 per event record (kNF + kNI words)
+static_assert(4 * kRec >= kNF + kNI, "event record too small");
 
 struct Moments {
     int n;
-    float s, mean, m2;
+    float k, p, q;  // shift (first finite value), sum(x - k), sum((x - k)^2)
 };
 
 __device__ __forceinline__ void moments_reset(Moments& m) {
     m.n = 0;
-    m.s = 0.0f;
-    m.mean = 0.0f;
-    m.m2 = 0.0f;
+    m.k = 0.0f;
+    m.p = 0.0f;
+    m.q = 0.0f;
 }
 
 __device__ __forceinline__ void moments_add(Moments& m, float x) {
     if (!isfinite(x)) return;
+    if (m.n == 0) m.k = x;
     m.n += 1;
-    m.s += x;
-    const float d = x - m.mean;
-    m.mean += d / (float)m.n;
-    m.m2 += d * (x - m.mean);
+    const float y = x - m.k;
+    m.p += y;
+    m.q = fmaf(y, y, m.q);
 }
 
-// channels base .. base+3: count, sum, mean, standard deviation
-__device__ __forceinline__ void moments_put(float* f, size_t stride,
-                                            int base, const Moments& m) {
+// l = l followed by r: r's sums rebased onto l's shift
+__device__ __forceinline__ void moments_merge(Moments& l, const Moments& r) {
+    if (r.n == 0) return;
+    if (l.n == 0) {
+        l = r;
+        return;
+    }
+    const float d = r.k - l.k;
+    const float nr = (float)r.n;
+    l.q += r.q + d * (2.0f * r.p + nr * d);
+    l.p += r.p + nr * d;
+    l.n += r.n;
+}
+
+// v[0..3]: count, sum, mean, standard deviation
+__device__ __forceinline__ void moments_vals(float* v, const Moments& m) {
     const float nf = (float)m.n;
-    f[base * stride] = nf;
-    f[(base + 1) * stride] = m.n > 0 ? m.s : NAN;
-    f[(base + 2) * stride] = m.n > 0 ? m.s / nf : NAN;
-    f[(base + 3) * stride] =
-        m.n > 1 ? sqrtf(fmaxf(m.m2 / (nf - 1.0f), 0.0f)) : NAN;
+    const float s = fmaf(nf, m.k, m.p);
+    v[0] = nf;
+    v[1] = m.n > 0 ? s : NAN;
+    v[2] = m.n > 0 ? s / nf : NAN;
+    v[3] = m.n > 1 ? sqrtf(fmaxf((m.q - m.p * m.p / nf) / (nf - 1.0f), 0.0f))
+                   : NAN;
 }
 
 struct EventState {
@@ -84,6 +128,17 @@ struct EventState {
     int start, pk;
     bool has_ap;
 };
+
+// a segment's share of one event, kept in shared memory until the merge
+struct Partial {
+    EventState s;
+    int end;   // head: the day it closed
+    int flag;  // head: still open at the segment's end; tail: present
+};
+
+constexpr size_t kSmem = 2 * kThreads * sizeof(Partial) +
+                         kThreads * sizeof(int) +
+                         3 * (kChunk + 1) * kThreads * sizeof(float);
 
 __device__ __forceinline__ void state_reset(EventState& s, int t) {
     moments_reset(s.rs);
@@ -139,108 +194,280 @@ __device__ __forceinline__ void state_add(EventState& s, int t, float x,
     if (isfinite(next)) s.am_last = next;
 }
 
-__device__ void state_put(const EventState& s, int end, float* f, int* io,
-                          size_t stride) {
-    const bool any = s.rs.n > 0;
-    moments_put(f, stride, 0, s.rs);
-    moments_put(f, stride, 4, s.rt);
-    moments_put(f, stride, 8, s.sv);
-    moments_put(f, stride, 12, s.ma);
-    f[16 * stride] = (float)s.dmod;
-    f[17 * stride] = (float)s.dstr;
-    f[18 * stride] = (float)s.dsev;
-    f[19 * stride] = (float)s.dext;
-    f[20 * stride] = (float)s.nct;
-    f[21 * stride] = any ? s.mx_rs : NAN;
-    f[22 * stride] = s.sv.n > 0 ? s.mx_sv : NAN;
-    f[23 * stride] = s.nct > 0 ? s.mx_ct : NAN;
-    f[24 * stride] = any ? s.rs_first : NAN;
-    f[25 * stride] = any ? s.rs_last : NAN;
-    f[26 * stride] = s.has_ap ? s.ap_first : NAN;
-    f[27 * stride] = s.am_last;
-    f[28 * stride] = any ? s.relt_pk : NAN;
-    f[29 * stride] = any ? s.mabs_pk : NAN;
-    io[0] = s.start;
-    io[stride] = end;
-    io[2 * stride] = any ? s.pk : -1;
+// l = the event's days in l followed by those in r (r's days come later)
+__device__ void state_merge(EventState& l, const EventState& r) {
+    if (l.rs.n == 0) l.rs_first = r.rs_first;
+    if (r.rs.n > 0) l.rs_last = r.rs_last;
+    if (r.mx_rs > l.mx_rs) {
+        l.mx_rs = r.mx_rs;
+        l.pk = r.pk;
+        l.relt_pk = r.relt_pk;
+        l.mabs_pk = r.mabs_pk;
+    }
+    moments_merge(l.rs, r.rs);
+    moments_merge(l.rt, r.rt);
+    moments_merge(l.sv, r.sv);
+    moments_merge(l.ma, r.ma);
+    l.dmod += r.dmod;
+    l.dstr += r.dstr;
+    l.dsev += r.dsev;
+    l.dext += r.dext;
+    l.nct += r.nct;
+    l.mx_sv = fmaxf(l.mx_sv, r.mx_sv);
+    l.mx_ct = fmaxf(l.mx_ct, r.mx_ct);
+    if (!l.has_ap) {
+        l.has_ap = r.has_ap;
+        l.ap_first = r.ap_first;
+    }
+    if (isfinite(r.am_last)) l.am_last = r.am_last;
 }
 
-__global__ void event_scan_kernel(const float* __restrict__ ts,
-                                  const float* __restrict__ th,
-                                  const float* __restrict__ se,
-                                  const int* __restrict__ doy_pos,
-                                  const uint8_t* __restrict__ day,
-                                  const uint8_t* __restrict__ st,
-                                  int T, int C, int K,
-                                  float* __restrict__ fout,
-                                  int* __restrict__ iout) {
-    const int c = blockIdx.x * kThreads + threadIdx.x;
-    if (c >= C) return;
-    const size_t stride = (size_t)K * C;
-
-    EventState s;
-    state_reset(s, 0);
-    int cnt = 0;             // is_start days seen = slot + 1
-    float prev_anom = NAN;   // ts - seas of day t-1
-    for (int t0 = 0; t0 < T; t0 += kChunk) {
-        float x[kChunk + 1], h[kChunk + 1], e[kChunk + 1];
-        uint32_t dbits = 0u, sbits = 0u;
+// The event's record: channels 0..29 of F, then start, end and peak as
+// int bits, then padding; kRec float4 in all.
+__device__ void state_pack(const EventState& s, int end, float4* rec) {
+    const bool any = s.rs.n > 0;
+    float v[4 * kRec];
+    moments_vals(v, s.rs);
+    moments_vals(v + 4, s.rt);
+    moments_vals(v + 8, s.sv);
+    moments_vals(v + 12, s.ma);
+    v[16] = (float)s.dmod;
+    v[17] = (float)s.dstr;
+    v[18] = (float)s.dsev;
+    v[19] = (float)s.dext;
+    v[20] = (float)s.nct;
+    v[21] = any ? s.mx_rs : NAN;
+    v[22] = s.sv.n > 0 ? s.mx_sv : NAN;
+    v[23] = s.nct > 0 ? s.mx_ct : NAN;
+    v[24] = any ? s.rs_first : NAN;
+    v[25] = any ? s.rs_last : NAN;
+    v[26] = s.has_ap ? s.ap_first : NAN;
+    v[27] = s.am_last;
+    v[28] = any ? s.relt_pk : NAN;
+    v[29] = any ? s.mabs_pk : NAN;
+    v[30] = __int_as_float(s.start);
+    v[31] = __int_as_float(end);
+    v[32] = __int_as_float(any ? s.pk : -1);
+    v[33] = v[34] = v[35] = 0.0f;
 #pragma unroll
-        for (int j = 0; j <= kChunk; ++j) {
-            const int t = t0 + j;
-            if (t < T) {
-                const size_t o = (size_t)t * C + c;
-                const size_t q = (size_t)__ldg(doy_pos + t) * C + c;
-                x[j] = __ldg(ts + o);
-                h[j] = __ldg(th + q);
-                e[j] = __ldg(se + q);
-                if (__ldg(day + o)) dbits |= 1u << j;
-                if (__ldg(st + o)) sbits |= 1u << j;
-            } else {
-                x[j] = h[j] = e[j] = NAN;
+    for (int i = 0; i < kRec; ++i)
+        rec[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                             v[4 * i + 3]);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+event_scan_kernel(const float* __restrict__ ts, const float* __restrict__ th,
+                  const float* __restrict__ se,
+                  const int* __restrict__ doy_pos,
+                  const uint8_t* __restrict__ day,
+                  const uint8_t* __restrict__ st, int T, int C, int K,
+                  float4* __restrict__ recs, float* __restrict__ fout,
+                  int* __restrict__ iout) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Partial* heads = reinterpret_cast<Partial*>(smem);
+    Partial* tails = heads + kThreads;
+    int* counts = reinterpret_cast<int*>(tails + kThreads);
+    float* stage = reinterpret_cast<float*>(counts + kThreads);
+
+    const int lane = threadIdx.x % kLanes;
+    const int w = threadIdx.x / kLanes;
+    const int me = threadIdx.x;  // = w * kLanes + lane
+    const int c = blockIdx.x * kLanes + lane;
+    const bool live = c < C;
+    const int L = (T + kWarps - 1) / kWarps;
+    const int a = min(w * L, T);
+    const int b = min(a + L, T);
+    const size_t stride = (size_t)K * C;
+    recs += (size_t)blockIdx.x * K * kLanes * kRec;  // this block's records
+
+    // 1. starts in [a, b); the segment's first slot is the count before it
+    int n = 0;
+    if (live) {
+#pragma unroll 8
+        for (int t = a; t < b; ++t) n += __ldg(st + (size_t)t * C + c);
+    }
+    counts[me] = n;
+    __syncthreads();
+    int base = 0, total = 0;
+    for (int v = 0; v < kWarps; ++v) {
+        const int k = counts[v * kLanes + lane];
+        base += v < w ? k : 0;
+        total += k;
+    }
+
+    // 2. walk [a, b); rows up to b are read (b is the lookahead row)
+    EventState s;
+    state_reset(s, a);
+    heads[me].s = s;
+    heads[me].end = a - 1;
+    heads[me].flag = 0;
+    tails[me].flag = 0;
+    int cnt = 0;             // is_start days seen in the segment
+    bool open = false;       // day[t] && day[t+1] at the last day walked
+    float prev_anom = NAN;   // ts - seas of day t-1
+    if (live && a > 0) {
+        const size_t q = (size_t)__ldg(doy_pos + a - 1) * C + c;
+        prev_anom = __ldg(ts + (size_t)(a - 1) * C + c) - __ldg(se + q);
+    }
+    const int rows = min(b + 1, T);
+    float* sx = stage + me;  // this thread's rows [j][x, h, e], kThreads apart
+    for (int t0 = a; live && t0 < b; t0 += kChunk) {
+        uint32_t dbits = 0u, sbits = 0u;
+        {
+            float x[kChunk + 1], h[kChunk + 1], e[kChunk + 1];
+#pragma unroll
+            for (int j = 0; j <= kChunk; ++j) {
+                const int t = t0 + j;
+                if (t < rows) {
+                    const size_t o = (size_t)t * C + c;
+                    const size_t q = (size_t)__ldg(doy_pos + t) * C + c;
+                    x[j] = __ldg(ts + o);
+                    h[j] = __ldg(th + q);
+                    e[j] = __ldg(se + q);
+                    if (__ldg(day + o)) dbits |= 1u << j;
+                    if (__ldg(st + o)) sbits |= 1u << j;
+                } else {
+                    x[j] = h[j] = e[j] = NAN;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j <= kChunk; ++j) {
+                sx[(3 * j) * kThreads] = x[j];
+                sx[(3 * j + 1) * kThreads] = h[j];
+                sx[(3 * j + 2) * kThreads] = e[j];
             }
         }
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
+        const int jn = min(kChunk, b - t0);
+#pragma unroll 1
+        for (int j = 0; j < jn; ++j) {
             const int t = t0 + j;
-            if (t < T) {
-                const float anom = x[j] - e[j];
-                if ((sbits >> j) & 1u) {
-                    state_reset(s, t);
-                    ++cnt;
-                }
-                if ((dbits >> j) & 1u) {
-                    state_add(s, t, x[j], h[j], e[j], prev_anom,
-                              x[j + 1] - e[j + 1]);
-                    const bool last = !((dbits >> (j + 1)) & 1u);
-                    if (last && cnt >= 1 && cnt - 1 < K) {
-                        const size_t o = (size_t)(cnt - 1) * C + c;
-                        state_put(s, t, fout + o, iout + o, stride);
+            const float x = sx[(3 * j) * kThreads];
+            const float e = sx[(3 * j + 2) * kThreads];
+            const float anom = x - e;
+            if ((sbits >> j) & 1u) {
+                state_reset(s, t);
+                ++cnt;
+            }
+            const bool today = (dbits >> j) & 1u;
+            const bool next = (dbits >> (j + 1)) & 1u;
+            if (today) {
+                state_add(s, t, x, sx[(3 * j + 1) * kThreads], e, prev_anom,
+                          sx[(3 * j + 3) * kThreads] -
+                              sx[(3 * j + 5) * kThreads]);
+                if (!next) {
+                    if (cnt == 0) {  // the head closes
+                        heads[me].s = s;
+                        heads[me].end = t;
+                    } else if (base + cnt - 1 < K) {
+                        state_pack(s, t, recs + ((size_t)(base + cnt - 1) *
+                                                 kLanes + lane) * kRec);
                     }
                 }
-                prev_anom = anom;
+            }
+            open = today && next;
+            prev_anom = anom;
+        }
+    }
+    if (open) {
+        if (cnt == 0) {  // one event runs through the whole segment
+            heads[me].s = s;
+            heads[me].flag = 1;
+        } else {
+            tails[me].s = s;
+            tails[me].flag = 1;
+        }
+    }
+    __syncthreads();
+
+    // 3. warp 0 joins each tail to the heads that follow it
+    if (w == 0 && live) {
+        EventState acc;
+        bool carry = false;
+        int slot = 0, first = 0;
+        for (int v = 0; v < kWarps; ++v) {
+            const Partial& hd = heads[v * kLanes + lane];
+            if (carry) {
+                state_merge(acc, hd.s);
+                if (!hd.flag) {
+                    state_pack(acc, hd.end,
+                               recs + ((size_t)slot * kLanes + lane) * kRec);
+                    carry = false;
+                }
+            }
+            first += counts[v * kLanes + lane];
+            if (tails[v * kLanes + lane].flag && first - 1 < K) {
+                acc = tails[v * kLanes + lane].s;
+                slot = first - 1;
+                carry = true;
             }
         }
     }
-    for (int k = min(cnt, K); k < K; ++k) {
-        const size_t o = (size_t)k * C + c;
-        for (int ch = 0; ch < kNF; ++ch) fout[ch * stride + o] = NAN;
-        for (int ch = 0; ch < kNI; ++ch) iout[ch * stride + o] = -1;
+
+    __syncthreads();
+
+    // 4. records to (channel, k, cell), a coalesced row per warp and
+    // channel; slots from min(n_events, K) on get NaN / -1
+    if (live) {
+        const int used = min(total, K);
+        for (int k = w; k < K; k += kWarps) {
+            const size_t o = (size_t)k * C + c;
+            if (k < used) {
+                const float4* r = recs + ((size_t)k * kLanes + lane) * kRec;
+                float v[4 * kRec];
+#pragma unroll
+                for (int i = 0; i < kRec; ++i) {
+                    const float4 q = r[i];
+                    v[4 * i] = q.x;
+                    v[4 * i + 1] = q.y;
+                    v[4 * i + 2] = q.z;
+                    v[4 * i + 3] = q.w;
+                }
+#pragma unroll
+                for (int ch = 0; ch < kNF; ++ch)
+                    fout[ch * stride + o] = v[ch];
+#pragma unroll
+                for (int ch = 0; ch < kNI; ++ch)
+                    iout[ch * stride + o] = __float_as_int(v[kNF + ch]);
+            } else {
+                for (int ch = 0; ch < kNF; ++ch) fout[ch * stride + o] = NAN;
+                for (int ch = 0; ch < kNI; ++ch) iout[ch * stride + o] = -1;
+            }
+        }
     }
 }
 
 }  // namespace
 
+// Floats of scratch that xmhw_event_scan needs for C cells and K slots.
+extern "C" long long xmhw_event_scan_scratch(int C, int K) {
+    return (long long)((C + kLanes - 1) / kLanes) * K * kLanes * 4 * kRec;
+}
+
 // ts: (T, C) float32; th/se: (ndoy, C) float32; doy_pos: (T,) int32 rows
-// of th/se; day, st: (T, C) uint8 0/1 (event_day, is_start of the RLE).
+// of th/se; day, st: (T, C) uint8 0/1 (event_day, is_start of the RLE);
+// recs: xmhw_event_scan_scratch(C, K) floats, 16-byte aligned.
 // fout: (30, K, C) float32; iout: (3, K, C) int32.
 extern "C" int xmhw_event_scan(const float* ts, const float* th,
                                const float* se, const int* doy_pos,
                                const uint8_t* day, const uint8_t* st,
-                               int T, int C, int K, float* fout, int* iout,
-                               void* stream) {
-    const int blocks = (C + kThreads - 1) / kThreads;
-    event_scan_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        ts, th, se, doy_pos, day, st, T, C, K, fout, iout);
+                               int T, int C, int K, float* recs, float* fout,
+                               int* iout, void* stream) {
+    cudaError_t e = cudaFuncSetAttribute(
+        event_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmem);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (C + kLanes - 1) / kLanes;
+    event_scan_kernel<<<blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
+        ts, th, se, doy_pos, day, st, T, C, K,
+        reinterpret_cast<float4*>(recs), fout, iout);
     return (int)cudaGetLastError();
+}
+
+// The launch shape: time segments (warps) per block, threads per block and
+// dynamic shared memory bytes per block.
+extern "C" void xmhw_event_scan_config(int* warps, int* threads,
+                                       int* smem_bytes) {
+    *warps = kWarps;
+    *threads = kThreads;
+    *smem_bytes = (int)kSmem;
 }

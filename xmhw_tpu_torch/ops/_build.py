@@ -36,7 +36,8 @@ SIGNATURES = {
     "xmhw_doy_quantile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "xmhw_rle": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                  _P),
-    "xmhw_event_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "xmhw_event_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                        _P),
     "xmhw_run_bound": (_P, _I, _I, _I, _P, _P),
 }
 
@@ -94,6 +95,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.xmhw_error_string.argtypes = [ctypes.c_int]
     lib.xmhw_error_string.restype = ctypes.c_char_p
+    lib.xmhw_event_scan_config.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.xmhw_event_scan_config.restype = None
+    lib.xmhw_event_scan_scratch.argtypes = [_I, _I]
+    lib.xmhw_event_scan_scratch.restype = ctypes.c_longlong
     return lib
 
 

@@ -27,6 +27,8 @@ Slots from min(n_events, K) on are NaN / -1.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -172,15 +174,29 @@ def event_stats(ts, th, se, doy_pos, day, is_start, K):
     if K < 1:
         raise ValueError(f"K must be positive, got {K}")
     args = (ts, th, se, doy_pos, day, is_start)
+    lib = _build.library()
+    # the kernel's per-event records, copied into F and I at its end
+    recs = torch.empty(lib.xmhw_event_scan_scratch(C, K),
+                       dtype=torch.float32, device=dev)
     F = torch.empty((len(F_CHANNELS), K, C), dtype=torch.float32,
                     device=dev)
     Ic = torch.empty((len(I_CHANNELS), K, C), dtype=torch.int32, device=dev)
-    err = _build.library().xmhw_event_scan(
-        *(a.data_ptr() for a in args), T, C, K, F.data_ptr(),
-        Ic.data_ptr(), _build.stream_of(ts))
+    err = lib.xmhw_event_scan(
+        *(a.data_ptr() for a in args), T, C, K, recs.data_ptr(),
+        F.data_ptr(), Ic.data_ptr(), _build.stream_of(ts))
     _build.check(err, "event_scan")
     event_stats.launches += 1
     return F, Ic
 
 
 event_stats.launches = 0
+
+
+def launch_config():
+    """The kernel's launch shape per block: ``warps`` (time segments),
+    ``threads`` and ``smem_bytes`` (dynamic shared memory). Builds the
+    kernel library on first use."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.library().xmhw_event_scan_config(*map(ctypes.byref, vals))
+    return dict(zip(("warps", "threads", "smem_bytes"),
+                    (v.value for v in vals)))
