@@ -22,7 +22,23 @@ Phases, one or more lines each:
    series, and 5-year blocks) and mhw_rank() of the slice on the card,
    against the host numpy path;
 7. fused: run_fused on the same data, with its stats stage, must
-   reproduce the slice, its block_average and its mhw_rank.
+   reproduce the slice, its block_average and its mhw_rank;
+8. stream steps: the device steps only the streamed stages run
+   (stream_block_average's float64 event and day statistics of one stripe,
+   stream_rank's batched ranks), on the slice's events, on the card
+   against the CPU;
+9. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
+   the standard shapes on the card; every kernel's launch counter must
+   advance;
+10. stream: the streamed pipelines file to file, which read and write
+   NetCDF through h5py. Where h5py is installed: a 160 x 64 grid (10,240
+   cells, ~20 % land, 40 daily years, float32, ~600 MB) through stream_run
+   (3 stripes) and through the staged chain stream_threshold ->
+   stream_detect -> stream_block_average -> stream_rank, which must agree,
+   and whose climatology and events must equal one in-memory run_fused
+   over the grid; launch counters must advance in both runs; then the CLI's
+   ``run`` on a small grid in a subprocess. Where h5py is missing, one line
+   says that the phase did not run and why.
 
 Then a JSON line with one entry per kernel, and last the line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -36,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -50,6 +67,7 @@ TOL = {"thresh": 1e-6, "seas": 1e-5, "scan": 2e-3}  # atol; scan also rtol
 # sides (rtol); event statistics are float32 tables summed in float32 on
 # the card and in float64 on the host (rtol = atol); counts and ranks exact
 STATS_TOL = {"day": 1e-9, "event": 1e-5}
+STREAM_GRID = (160, 64)  # 10,240 cells; the default stripe is 71 rows
 DAY_STATS = ("ts_mean", "ts_max", "ts_min")
 RANKED = ("intensity_max", "duration")
 
@@ -586,6 +604,237 @@ def fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax):
     return worst
 
 
+def phase_stream_steps(card, da, clim, mhw):
+    """stream_block_average's per-stripe device step (float64 year-block
+    event and day statistics) and stream_rank's batched ranks, on the
+    slice's events as one stripe: the card against the CPU. Counts and
+    ranks exact; float64 statistics within rtol 1e-9 (sums in another
+    order)."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.core.features_scan import RANK_VARS
+    from xmhw_tpu_torch.core.stats import EVENT_VARS, day_block_edges
+    from xmhw_tpu_torch.stream import _block_stats_step, _rank_stack
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    ocean = ocean_of(da)
+    tvals = np.asarray(da.coords["time"].values)
+    years = tvals.astype("datetime64[Y]").astype(int) + 1970
+    bins = np.arange(years[0], years[-1] + 2)
+    nbins = len(bins) - 1
+    doy, _ = compute_doy(TimeIndex(tvals))
+    tab = {v: np.asarray(mhw[v].data[:, ocean]) for v in
+           set(EVENT_VARS) | set(RANK_VARS) | {"time_start"}}
+    vals = np.stack([tab[v].astype(np.float64) for v in EVENT_VARS])
+    start = tab["time_start"]
+    valid = ~np.isnat(start)
+    ev_years = start.astype("datetime64[Y]").astype(int) + 1970
+    bin_idx = np.clip(np.searchsorted(bins, ev_years, side="right") - 1, 0,
+                      nbins - 1)
+    ts = np.ascontiguousarray(da.data[:, ocean], np.float64)
+    th, se = (np.ascontiguousarray(clim[v].data[:, ocean], np.float64)
+              for v in ("thresh", "seas"))
+    edges = day_block_edges(years, bins)
+    stack = np.stack([tab[v].astype(np.float64) for v in RANK_VARS])
+    out = []
+    for dev in (DEV, "cpu"):
+        dev = torch.device(dev)
+        pos = torch.from_numpy((doy - 1).astype(np.int64)).to(dev)
+        t0 = time.perf_counter()
+        ev, day = _block_stats_step(vals, bin_idx, valid, nbins, dev, ts,
+                                    th, se, pos, edges, True)
+        t1 = time.perf_counter()
+        ranks = _rank_stack(torch.from_numpy(stack).to(dev)).cpu().numpy()
+        t2 = time.perf_counter()
+        out.append(({**ev, **day}, ranks, t1 - t0, t2 - t1))
+    (got, rk, bs, rs), (want, hrk, hbs, hrs) = out
+    worst = 0.0
+    for k, v in want.items():
+        if k == "ecount" or k.endswith("_days"):
+            if not np.array_equal(got[k], v):
+                raise AssertionError(f"stream block step {k}: card != CPU")
+            continue
+        worst = max(worst, max_err(_t(got[k]), _t(v), f"stream block step "
+                                   f"{k}", 0.0, STATS_TOL["day"]))
+    if not np.array_equal(rk, hrk, equal_nan=True):
+        raise AssertionError("stream rank step: card != CPU")
+    if not np.nansum(got["ecount"]) > 0:
+        raise AssertionError("stream block step counted no events")
+    log(f"stream steps: block statistics of {ts.shape[1]} cells x "
+        f"{ts.shape[0]} days, {nbins} year blocks, {vals.shape[1]} event "
+        f"slots (float64): card {bs:.3f} s, CPU {hbs:.3f} s, max |diff| "
+        f"{worst:.3g}; ranks of a {stack.shape} stack: card {rs:.3f} s, "
+        f"CPU {hrs:.3f} s, equal  [{card}]")
+
+
+def phase_cli(card):
+    """``python -m xmhw_tpu_torch warmup``, in process: build (the cached
+    library) and the standard shapes on the card (40 daily years, one
+    4,096-cell block, K = 32, 64, 128); every kernel must launch."""
+    from xmhw_tpu_torch.__main__ import main as cli
+
+    reset_launches()
+    t = time.perf_counter()
+    if cli(["warmup"]) != 0:
+        raise AssertionError("warmup returned non-zero")
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by warmup: {missing}")
+    log(f"cli: warmup in {wall:.3f} s; launches {launches}  [{card}]")
+
+
+def phase_stream(card):
+    """The streamed pipelines file to file, where h5py is installed."""
+    import importlib.util
+    import tempfile
+
+    if importlib.util.find_spec("h5py") is None:
+        log("stream: did not run: no h5py on this machine, and the streamed "
+            "functions read and write NetCDF through it; "
+            "tests/test_torch_stream*.py carry their parity with xmhw_tpu "
+            "on the CPU")
+        return
+    with tempfile.TemporaryDirectory(prefix="xmhw_stream_") as d:
+        stream_files(card, Path(d), DEV, *STREAM_GRID, daily(T0, T1))
+
+
+def exact(part, k):
+    """The variables of an output file that two runs must write equal:
+    thresholds, event positions, counts and categories, ranks."""
+    if part == "mhw":
+        return (k in ("event", "category") or
+                k.startswith(("duration", "index_", "time_")))
+    return (part == "rank" or (part, k) == ("clim", "thresh")
+            or (part, k) == ("block", "ecount"))
+
+
+def files_agree(a, b, part):
+    """Two output files of the port: the same variables and shapes, the
+    same NaN patterns, the ``exact`` variables equal, category-day counts
+    within 1 (stream_run computes a day's category in float32, the staged
+    block_average in float64: a day on a category edge may fall on either
+    side), other floats within rtol = atol = 2e-3. Returns the largest
+    float |difference|."""
+    import xmhw_tpu_torch as xt
+
+    da, db = xt.open_dataset(a), xt.open_dataset(b)
+    what = f"stream {part}"
+    if sorted(da.keys()) != sorted(db.keys()):
+        raise AssertionError(f"{what}: variables differ")
+    worst = 0.0
+    for k in db.keys():
+        x, y = np.asarray(da[k].data), np.asarray(db[k].data)
+        if x.shape != y.shape:
+            raise AssertionError(f"{what} {k}: shapes {x.shape} {y.shape}")
+        if x.dtype.kind == "M":
+            x, y = x.astype("i8"), y.astype("i8")
+        if part == "block" and k.endswith("_days"):
+            max_err(_t(x), _t(y), f"{what} {k}", 1.0)
+            continue
+        if exact(part, k) or x.dtype.kind == "i":
+            if not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+                raise AssertionError(f"{what} {k}: not equal")
+            continue
+        worst = max(worst, max_err(_t(x), _t(y), f"{what} {k}", TOL["scan"],
+                                   TOL["scan"]))
+    return worst
+
+
+def stream_files(card, d, dev, nlat, nlon, t):
+    """stream_run and the staged chain over one grid file; their files
+    must agree, and stream_run's climatology and events must equal one
+    in-memory run_fused over the grid. Then the CLI's ``run``."""
+    import xmhw_tpu_torch as xt
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.core.features_scan import TABLE_VARS
+    from xmhw_tpu_torch.core.pipeline import run_fused
+    from xmhw_tpu_torch.stream import _auto_stripe
+    from xmhw_tpu_torch.xrlite import Dataset, TimeIndex
+
+    n = nlat * nlon
+    ds = Dataset()
+    ds["sst"] = grid(t, nlat, nlon, seed=5, land=n // 5)
+    src = str(d / "sst.nc")
+    w = time.perf_counter()
+    xt.save_dataset(ds, src)
+    w = time.perf_counter() - w
+    rows = _auto_stripe(len(t), (nlat, nlon))
+    log(f"stream: wrote {n} cells x {len(t)} days ({ds['sst'].data.nbytes} "
+        f"B) in {w:.3f} s; stripes of {rows} rows: "
+        f"{-(-nlat // rows)}  [{card}]")
+    runs = {}
+    for how in ("stream_run", "staged"):
+        p = {k: str(d / f"{how}_{k}.nc") for k in ("clim", "mhw", "block",
+                                                   "rank")}
+        reset_launches()
+        t0 = time.perf_counter()
+        if how == "stream_run":
+            out = xt.stream_run(src, "sst", p["clim"], p["mhw"],
+                                block_path=p["block"], rank_path=p["rank"],
+                                device=dev)
+        else:
+            xt.stream_threshold(src, "sst", p["clim"], device=dev)
+            xt.stream_detect(src, "sst", p["clim"], p["mhw"], device=dev)
+            xt.stream_block_average(p["mhw"], p["block"], dstime_path=src,
+                                    dstime_var="sst", clim_path=p["clim"],
+                                    device=dev)
+            out = dict(p, **{"return": xt.stream_rank(
+                p["mhw"], p["rank"], device=dev)[1]})
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by {how}: {missing}")
+        runs[how] = out
+        log(f"stream: {how} file to file in {wall:.3f} s = "
+            f"{n / wall:.1f} cells/s (land included); launches {launches}"
+            f"  [{card}]")
+    worst = max(files_agree(runs["stream_run"][k], runs["staged"][k], k)
+                for k in runs["staged"])
+    clim = xt.open_dataset(runs["stream_run"]["clim"])
+    mhw = xt.open_dataset(runs["stream_run"]["mhw"])
+    ocean = ~np.isnan(ds["sst"].data).all(axis=0)
+    doy, _ = compute_doy(TimeIndex(t))
+    th, se, tables, nev, _ = run_fused(
+        np.ascontiguousarray(ds["sst"].data[:, ocean]), doy,
+        (doy - 1).astype(np.int32), device=dev)
+    for k, v in (("thresh", th), ("seas", se)):
+        if not np.array_equal(clim[k].data[:, ocean], v, equal_nan=True):
+            raise AssertionError(f"stream {k} != in-memory run_fused")
+    K = mhw["event"].sizes["ev"]
+    if tables["event"].shape[0] > K or not np.array_equal(
+            np.isfinite(mhw["duration"].data[:, ocean]).sum(axis=0), nev):
+        raise AssertionError("stream event counts != in-memory run_fused")
+    for k in TABLE_VARS:
+        if k.startswith("time_"):
+            continue
+        a = np.asarray(mhw[k].data[:, ocean], np.float64)
+        b = np.full(a.shape, np.nan)
+        b[:tables[k].shape[0]] = tables[k]
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"stream {k} != in-memory run_fused")
+    log(f"stream: stream_run and the staged chain agree (max |diff| "
+        f"{worst:.3g}); clim and {int(nev.sum())} events equal one "
+        f"in-memory run_fused  [{card}]")
+    small = Dataset()
+    small["sst"] = grid(t, 8, 8, seed=6, land=8)
+    xt.save_dataset(small, str(d / "small.nc"))
+    c = [str(d / f"cli_{k}.nc") for k in ("c", "m", "b", "r")]
+    r = subprocess.run(
+        [sys.executable, "-m", "xmhw_tpu_torch", "--device", str(dev), "run",
+         str(d / "small.nc"), "sst", c[0], c[1], "--block", c[2], "--rank",
+         c[3]], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    if r.returncode != 0 or not all(Path(f).exists() for f in c):
+        raise AssertionError(f"python -m xmhw_tpu_torch run failed: "
+                             f"{r.stderr[-2000:]}")
+    log(f"stream: python -m xmhw_tpu_torch run on 64 cells wrote "
+        f"{len(r.stdout.splitlines())} files  [{card}]")
+
+
 def main():
     import torch
 
@@ -603,6 +852,9 @@ def main():
     clim, mhw, launches = phase_slice(card, da)
     stats = phase_stats(card, da, clim, mhw)
     phase_fused(card, da, clim, mhw, stats)
+    phase_stream_steps(card, da, clim, mhw)
+    phase_cli(card)
+    phase_stream(card)
     for r in rows:
         if r["name"] in launches:  # run_bound: counted in phase_kernels
             r["launches"] = launches[r["name"]]

@@ -285,3 +285,21 @@ def test_broken_source_build_raises(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="error"):
         _build.build()
+
+
+def test_timed_synchronises_the_card(dev, monkeypatch):
+    from xmhw_tpu_torch import utils
+
+    real = torch.cuda.synchronize
+    calls = []
+
+    def spy(d=None):
+        calls.append(d)
+        real(d)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", spy)
+    with utils.timed("matmul", log=False) as t:
+        x = torch.ones((512, 512), device=dev)
+        t["sync"] = [x @ x, torch.ones(2)]
+    assert calls == [x.device]
+    assert t["seconds"] > 0.0

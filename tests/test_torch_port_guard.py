@@ -2,9 +2,11 @@
 
 * The pure-numpy host modules are copies of the JAX package's: they must
   not drift apart (import lines aside). Where a module is only partly
-  numpy (stats_api.py, identify.py), each copied function and module
-  constant must have the original's syntax tree.
-* Importing the port loads neither JAX nor the JAX package.
+  numpy (stats_api.py, identify.py, stream.py, __main__.py), each copied
+  function, class and module constant must have the original's syntax
+  tree.
+* Importing the port loads neither JAX nor the JAX package, and the port
+  exports every name the JAX package does.
 * device="cuda" without a GPU raises; it never runs on the CPU quietly.
 * A failing nvcc build raises with the compiler's own message.
 """
@@ -52,10 +54,20 @@ PORTED = {
     "stats_api.py": {"block_average", "mhw_rank", "_block_ts_stats_device",
                      "_rank_device", "_stats_device"},
     "identify.py": {"runavg", "mhw_filter"},
+    "stream.py": {"stream_threshold", "stream_detect", "stream_block_average",
+                  "stream_rank", "stream_run", "_cats_kernel", "_kcache_file"},
+    "__main__.py": {"main", "_warmup", "build_parser"},
 }
+# top-level names of the original that the port leaves out: the jit cache
+# of _cats_kernel, and the JAX compile-cache switch (torch has none)
+DROPPED = {"stream.py": {"_cats_jit"},
+           "__main__.py": {"_enable_compile_cache"}}
 FN_SUBS = {"stats_api.py": [("years_coord, removeMissing)\n        dy_idx",
                              "years_coord, removeMissing,\n"
-                             "                device)\n        dy_idx")]}
+                             "                device)\n        dy_idx")],
+           # the files' global "source" attribute names the port
+           "stream.py": [('"source": "xmhw_tpu stream',
+                          '"source": "xmhw_tpu_torch stream')]}
 
 
 def code_lines(path, subs=()):
@@ -78,15 +90,15 @@ def test_copied_module_matches_original(rel):
 
 
 def top_level(path, subs=()):
-    """Module-level functions and assignments -> their dumped syntax
-    trees (comments aside)."""
+    """Module-level functions, classes and assignments -> their dumped
+    syntax trees (comments aside)."""
     src = path.read_text()
     for a, b in subs:
         assert a in src, a
         src = src.replace(a, b)
     out = {}
     for node in ast.parse(src).body:
-        if isinstance(node, ast.FunctionDef):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             out[node.name] = ast.dump(node)
         elif isinstance(node, ast.Assign):
             out[ast.unparse(node.targets)] = ast.dump(node)
@@ -98,7 +110,9 @@ def test_copied_functions_match_original(rel):
     orig = top_level(ROOT / "xmhw_tpu" / rel, FN_SUBS.get(rel, ()))
     port = top_level(ROOT / "xmhw_tpu_torch" / rel)
     assert PORTED[rel] <= set(port), sorted(PORTED[rel] - set(port))
-    copied = sorted(set(orig) - PORTED[rel])
+    dropped = DROPPED.get(rel, set())
+    assert dropped <= set(orig) and not dropped & set(port), dropped
+    copied = sorted(set(orig) - PORTED[rel] - dropped)
     assert copied and set(copied) <= set(port), sorted(set(copied)
                                                       - set(port))
     drifted = [n for n in copied if port[n] != orig[n]]
@@ -118,7 +132,8 @@ def test_port_imports_no_jax():
     code = ("import sys, xmhw_tpu_torch, xmhw_tpu_torch.core.pipeline, "
             "xmhw_tpu_torch.identify, xmhw_tpu_torch.stats, "
             "xmhw_tpu_torch.features, xmhw_tpu_torch.xmhw, "
-            "xmhw_tpu_torch.ops.run_bound; "
+            "xmhw_tpu_torch.ops.run_bound, xmhw_tpu_torch.stream, "
+            "xmhw_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xmhw_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -126,6 +141,14 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_exports_the_jax_package_names():
+    import xmhw_tpu
+
+    assert set(xt.__all__) == set(xmhw_tpu.__all__)
+    for name in xt.__all__:
+        assert hasattr(xt, name), name
 
 
 def test_cuda_without_gpu_raises():

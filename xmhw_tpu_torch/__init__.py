@@ -12,9 +12,16 @@ Public API (reference parity: README.rst:16-21):
     block_average()  year-block statistics
     mhw_rank()       per-property ranks and return periods
 
-``device`` of threshold()/detect() names a torch device (default
-``"cuda"``); that of block_average()/mhw_rank() keeps the JAX package's
-bool (False: the numpy host path, True: ``"cuda"``) or names a device.
+The streamed file-to-file pipelines (:mod:`xmhw_tpu_torch.stream`:
+stream_threshold/detect/block_average/rank, the one-pass stream_run, and
+merge_grid_band_files) and the CLI (``python -m xmhw_tpu_torch``) run
+grids larger than host memory; open_dataset/save_dataset read and write
+NetCDF4.
+
+``device`` of threshold()/detect() and of the stream functions names a
+torch device (default ``"cuda"``); that of block_average()/mhw_rank()
+keeps the JAX package's bool (False: the numpy host path, True:
+``"cuda"``) or names a device.
 
 Importing the package touches no device and sets no environment.
 """
@@ -22,7 +29,11 @@ Importing the package touches no device and sets no environment.
 from .api import detect, flip_cold, land_check, threshold
 from .exception import XmhwException
 from .stats_api import block_average, mhw_rank
-from .xrlite import DataArray, Dataset, TimeIndex
+from .stream import (merge_grid_band_files, stream_block_average,
+                     stream_detect, stream_rank, stream_run,
+                     stream_threshold)
+from .xrlite import (DataArray, Dataset, TimeIndex, open_dataset,
+                     save_dataset, to_dataframe, to_xarray)
 
 __version__ = "0.1.0"
 
@@ -35,7 +46,17 @@ __all__ = [
     "detect",
     "flip_cold",
     "land_check",
+    "merge_grid_band_files",
     "mhw_rank",
+    "open_dataset",
+    "save_dataset",
+    "stream_block_average",
+    "stream_detect",
+    "stream_rank",
+    "stream_run",
+    "stream_threshold",
     "threshold",
+    "to_dataframe",
+    "to_xarray",
     "__version__",
 ]

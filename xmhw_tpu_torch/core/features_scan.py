@@ -34,6 +34,10 @@ TABLE_VARS = (
     "severity_mean", "severity_var", "time_end", "time_peak",
     "time_start",
 )
+# the rankable subset — mhw_rank skips event/time/index variables
+# (reference: xmhw/stats.py:482-486)
+RANK_VARS = tuple(k for k in TABLE_VARS
+                  if not any(x in k for x in ("event", "time", "index")))
 
 
 def event_table(F, I, n_events, T):
