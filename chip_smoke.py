@@ -9,7 +9,14 @@ Phases, one or more lines each:
 2. build: nvcc builds every kernel of xmhw_tpu_torch/csrc into one library;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shapes (40 daily years, T = 14,610; 4,096 cells;
-   K = 128 event slots), with CUDA-event times of both. The running-bound
+   K = 128 event slots), with CUDA-event times of both, the kernel's bound
+   (the least time the card could take for its bytes or operations) and
+   the time of one PyTorch call that computes the same function, where
+   there is one. The clim percentile (doy_quantile) also runs at pctile
+   90, 87.5 and 10 on the 40-year tables, the 30-year climatology's
+   tables, a block of edge pools and the largest pool its wrapper takes
+   (thresholds bit-equal, means within one float32 ulp), and the radix
+   steps its common-prefix skip saves are counted. The running-bound
    kernel (run_bound), which no path calls, is driven here only. The
    event scan runs again on events that cross every one of its time
    segments' edges;
@@ -63,6 +70,11 @@ K = 128
 REPS = 5
 DEV = "cuda"
 TOL = {"thresh": 1e-6, "seas": 1e-5, "scan": 2e-3}  # atol; scan also rtol
+PCTILES = (90, 87.5, 10)
+# the H100 SXM's peaks (NVIDIA's data sheet): HBM3 bytes per second, and
+# float32 operations per second outside the tensor cores
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12
+NO_LIBRARY = "none: no single PyTorch call computes it"
 # stats against the host numpy path: day statistics are float64 on both
 # sides (rtol); event statistics are float32 tables summed in float32 on
 # the card and in float64 on the host (rtol = atol); counts and ranks exact
@@ -140,6 +152,48 @@ def max_err(a, b, what, atol, rtol=0.0):
     return float(d.max()) if d.numel() else 0.0
 
 
+def same_bits(a, b, what):
+    """Raises unless two float32 tensors are equal bit for bit (-0.0 and
+    +0.0 differ), NaN patterns included."""
+    import torch
+
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        raise AssertionError(f"{what}: NaN patterns differ")
+    if not torch.equal(torch.nan_to_num(a).view(torch.int32),
+                       torch.nan_to_num(b).view(torch.int32)):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def ulps(a, b, what):
+    """Max |a - b| in float32 ulps of the larger magnitude; raises above
+    one ulp or when the NaN patterns differ."""
+    import torch
+
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        raise AssertionError(f"{what}: NaN patterns differ")
+    if not bool(fa.any()):
+        return 0.0
+    big = torch.maximum(a[fa].abs(), b[fb].abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    r = float(((a[fa].double() - b[fb].double()).abs() / ulp.double()).max())
+    if r > 1.0:
+        raise AssertionError(f"{what}: {r:.3g} ulp apart (bar: 1)")
+    return r
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``moved`` bytes (each input read once, each output written
+    once) and to do ``ops`` operations, whichever is larger."""
+    b, o = moved / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def phase_device():
     import torch
 
@@ -188,22 +242,29 @@ def phase_kernels(card):
     args1 = (x, st, ln, ndoy, ny, rmax)
     rows = []
 
-    def row(name, src, replaces, err, fn, plain):
+    def row(name, src, replaces, err, fn, plain, moved, ops,
+            library=(NO_LIBRARY, None)):
         ms, pms = cuda_ms(fn), cuda_ms(plain)
+        bms, by = bound(moved, ops)
+        call, lib = library
+        lms = cuda_ms(lib) if lib is not None else None
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                     "library_call": call})
+        lib_txt = "none" if lms is None else f"{lms:.3f} ms"
         log(f"kernels: {name}: max |err| {err:.3g}, kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms  [{card}]")
+            f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by}: "
+            f"{moved / 1e6:.1f} MB, {ops:.3g} op), library {lib_txt} "
+            f"[{call}]  [{card}]")
 
-    thk, sek = doy_quantile.doy_quantile(*args1)
-    thp, sep = doy_quantile.doy_quantile_plain(*args1)
-    err = max(max_err(thk, thp, "doy_quantile thresh", TOL["thresh"]),
-              max_err(sek, sep, "doy_quantile seas", TOL["seas"]))
+    thk, sek, err, moved, ops, library = clim_kernel(card, t, ts, args1)
     row("doy_quantile", "xmhw_tpu_torch/csrc/doy_quantile.cu",
         "xmhw_tpu/ops/pallas/doy_quantile.py:299", err,
         lambda: doy_quantile.doy_quantile(*args1),
-        lambda: doy_quantile.doy_quantile_plain(*args1))
+        lambda: doy_quantile.doy_quantile_plain(*args1), moved, ops,
+        library)
 
     th, se = finish_clim(thk, sek)
     pos = torch.from_numpy((doy - 1).astype(np.int32)).to(DEV)
@@ -222,7 +283,9 @@ def phase_kernels(card):
     row("rle", "xmhw_tpu_torch/csrc/rle.cu",
         "xmhw_tpu/ops/pallas/rle.py:179", 0.0,
         lambda: rle.mhw_filter(bthresh, full=False),
-        lambda: rle.mhw_filter_plain(bthresh, full=False))
+        lambda: rle.mhw_filter_plain(bthresh, full=False),
+        nbytes(bthresh, *rle.mhw_filter(bthresh, full=False).values()),
+        bthresh.numel())
 
     # run_bound: no path calls it, so its launches are this check's
     nb = ~bthresh
@@ -234,12 +297,21 @@ def phase_kernels(card):
                 raise AssertionError(f"run_bound forward={fwd}: kernel != "
                                      "plain")
     launched = run_bound.run_bound.launches
+    # the yardstick: cummax/cummin of the masked day index, with the where
+    # and the flips outside the timed window
+    tt = torch.arange(T, dtype=torch.int32, device=DEV).view(T, 1)
+    fwd = torch.where(nb, tt, -1)
+    bwd = torch.flip(torch.where(nb, tt, T), (0,))
     row("run_bound", "xmhw_tpu_torch/csrc/run_bound.cu",
         "xmhw_tpu/ops/pallas/run_bound.py:88", 0.0,
         lambda: (run_bound.run_bound(nb, True),
                  run_bound.run_bound(nb, False)),
         lambda: (run_bound.run_bound_plain(nb, True),
-                 run_bound.run_bound_plain(nb, False)))
+                 run_bound.run_bound_plain(nb, False)),
+        2 * (nbytes(nb) + 4 * nb.numel()), 2 * nb.numel(),  # int32 out
+        ("torch.cummax(where(mask, t, -1)) + torch.cummin(flipped "
+         "where(mask, t, T))",
+         lambda: (torch.cummax(fwd, 0), torch.cummin(bwd, 0))))
     rows[-1].update(launches=launched, path="kernels phase only")
     log("kernels: run_bound: forward and backward on the mask and its "
         "negation equal the plain version; times are one forward + "
@@ -254,9 +326,105 @@ def phase_kernels(card):
     row("detect_scan", "xmhw_tpu_torch/csrc/detect_scan.cu",
         "xmhw_tpu/ops/pallas/detect_scan.py:336", err,
         lambda: detect_scan.event_stats(*args3),
-        lambda: detect_scan.event_stats_plain(*args3))
+        lambda: detect_scan.event_stats_plain(*args3),
+        nbytes(*args3[:6], Fk, Ik),
+        len(detect_scan.F_CHANNELS) * xt.numel())
     scan_edges(card, xt, th, se, pos)
     return rows
+
+
+def clim_kernel(card, t, ts, args):
+    """Kernel 1 against its plain version: thresholds bit-equal, means
+    within one float32 ulp (both round a float64 sum once, summed in
+    another order), at pctile 90, 87.5 and 10 on the main path's 40-year
+    block ``args``, on the 30-year climatology's tables the slice uses, on
+    a block of edge pools and on the largest pool the wrapper takes. Also
+    the radix steps the common-prefix skip saves over the 40-year block,
+    and the yardstick torch.nanquantile + torch.nanmean on its gathered
+    pool. Returns the 40-year pctile-90 outputs, the largest |err|, the
+    bytes and operations of the bound and the yardstick."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import build_window_ranges, compute_doy
+    from xmhw_tpu_torch.ops import doy_quantile as dq
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_doy_edges as edges
+
+    def tables(tv, w=5):
+        doy, ndoy = compute_doy(TimeIndex(tv))
+        starts, lens, ny, rmax = build_window_ranges(doy, w, ndoy)
+        return starts, lens, ndoy, ny, rmax
+
+    def padded(a, rmax):
+        x = torch.full((a.shape[0] + rmax, a.shape[1]), float("nan"),
+                       device=DEV)
+        x[:a.shape[0]] = torch.from_numpy(a).to(DEV)
+        return x
+
+    def case(x, starts, lens, ndoy, ny, rmax):
+        return (x, torch.from_numpy(starts.reshape(-1)).to(DEV),
+                torch.from_numpy(lens.reshape(-1)).to(DEV), ndoy, ny, rmax)
+
+    years = t.astype("datetime64[Y]").astype(int) + 1970
+    sel = (years >= CLIM_YEARS[0]) & (years <= CLIM_YEARS[1])
+    t30 = tables(t[sel])
+    big = edges.largest_pool()
+    blocks = {
+        "40 years": args,
+        "30-year climatology": case(padded(np.ascontiguousarray(ts[sel]),
+                                           t30[4]), *t30),
+        "edge pools": case(padded(edges.edge_series(len(t), CELLS, seed=4),
+                                  args[5]), *tables(t)),
+        "largest pool": case(padded(edges.edge_series(3000, CELLS, seed=5),
+                                    big[3]), big[0], big[1], len(big[0]),
+                             big[2], big[3]),
+    }
+    worst = 0.0
+    for label, a in blocks.items():
+        errs = []
+        for p in PCTILES:
+            thk, sek = dq.doy_quantile(*a, pctile=p)
+            thp, sep = dq.doy_quantile_plain(*a, pctile=p)
+            same_bits(thk, thp, f"doy_quantile {label} pctile {p} thresh")
+            errs.append(ulps(sek, sep, f"doy_quantile {label} pctile {p} "
+                                       "seas"))
+            if a is args:  # max_abs_err of the JSON line: the main block
+                worst = max(worst, max_err(sek, sep, "seas", float("inf")))
+        ms = cuda_ms(lambda: dq.doy_quantile(*a))
+        Z = a[4] * a[5]
+        log(f"kernels: doy_quantile {label} ({a[3]} doys x {CELLS} cells, "
+            f"pools of up to {Z} values): thresholds bit-equal, seas within "
+            f"{max(errs):.2f} ulp at pctile {list(PCTILES)}; kernel "
+            f"{ms:.3f} ms (pctile 90, median of {REPS})  [{card}]")
+
+    x, st, ln, ndoy, ny, rmax = args
+    pool = dq.gather_pool(*args)
+    saved = torch.cat([edges.skipped_steps(pool[d:d + 61])
+                       for d in range(0, ndoy, 61)])
+    saved = saved[saved >= 0].float()
+    log(f"kernels: doy_quantile common-prefix skip over the 40-year SST "
+        f"block: radix steps saved per pool min {int(saved.min())}, median "
+        f"{float(saved.median()):.0f}, mean {float(saved.mean()):.2f}, max "
+        f"{int(saved.max())} of 32 ({saved.numel()} pools)")
+    ops = 2 * int(torch.isfinite(pool).sum())  # a compare and an add each
+    thk, sek = dq.doy_quantile(*args)
+
+    def library():
+        return (torch.nanquantile(pool, 0.9, dim=1, interpolation="linear"),
+                torch.nanmean(pool, dim=1))
+
+    lq, lm = library()
+    log(f"kernels: doy_quantile yardstick torch.nanquantile + nanmean on "
+        f"the gathered {tuple(pool.shape)} pool ({nbytes(pool) / 1e9:.2f} "
+        f"GB, gathered outside the timed window): max |diff| from the "
+        f"kernel thresh {max_err(lq, thk, 'nanquantile', float('inf')):.3g},"
+        f" seas {max_err(lm, sek, 'nanmean', float('inf')):.3g} (its "
+        f"float32 interpolation rounds otherwise; not asserted)")
+    call = ("torch.nanquantile(pool, 0.9, dim=1, interpolation='linear') + "
+            "torch.nanmean(pool, dim=1)")
+    return thk, sek, worst, nbytes(*args[:3], thk, sek), ops, (call, library)
 
 
 def edge_mask(T, C, warps):

@@ -6,8 +6,9 @@ PyTorch is installed; run it on the card with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: the RLE and the running bound exact; clim thresholds exact
-and means within 1e-5 (both sum in float64, in different orders); the
+Tolerances: the RLE and the running bound exact; clim thresholds equal
+bit for bit and means within one float32 ulp (both round a float64 sum
+once, summed in different orders); the
 event scan's counts and positions exact and its floats within rtol =
 atol = 2e-3. block_average/mhw_rank on the card against the host numpy
 path: counts and ranks exact, day statistics rtol 1e-9 (both float64),
@@ -30,6 +31,7 @@ import xmhw_tpu_torch as xt  # noqa: E402
 from xmhw_tpu_torch.ops import _build, detect_scan, doy_quantile, rle  # noqa
 from xmhw_tpu_torch.ops import run_bound  # noqa: E402
 from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
+import test_torch_doy_edges as doy_edges  # noqa: E402
 import test_torch_scan_edges as edges  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -97,17 +99,78 @@ def clim_inputs(dev, C=300, years=4, seed=1):
     return (x, st, ln, ndoy, ny, rmax), doy
 
 
+def padded_args(dev, ts, starts, lens, ndoy, ny, rmax):
+    x = torch.full((ts.shape[0] + rmax, ts.shape[1]), float("nan"),
+                   device=dev)
+    x[:ts.shape[0]] = torch.from_numpy(ts).to(dev)
+    return (x, torch.from_numpy(starts.reshape(-1)).to(dev),
+            torch.from_numpy(lens.reshape(-1)).to(dev), ndoy, ny, rmax)
+
+
+def doy_case(dev, case):
+    """Kernel 1's inputs: the lanes of clim_inputs (4 years); SST-like
+    cells over 30 and 40 daily years (pools of 330 and 440 rows); the edge
+    pools of tests/test_torch_doy_edges.py over 4 years; the largest pool
+    the wrapper takes (1,816 rows)."""
+    if case == "lanes":
+        return clim_inputs(dev)[0]
+    if case == "largest":
+        starts, lens, ny, rmax = doy_edges.largest_pool()
+        ts = doy_edges.edge_series(3000, 300, seed=5)
+        return padded_args(dev, ts, starts, lens, len(starts), ny, rmax)
+    years = {"years30": 30, "years40": 40, "edges": 4}[case]
+    t = np.arange("1982-01-01", f"{1982 + years}-01-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    doy, ndoy = compute_doy(TimeIndex(t))
+    starts, lens, ny, rmax = build_window_ranges(doy, 5, ndoy)
+    kinds = doy_edges.KINDS if case == "edges" else ("sst",)
+    ts = doy_edges.edge_series(len(t), 300, seed=years, kinds=kinds)
+    return padded_args(dev, ts, starts, lens, ndoy, ny, rmax)
+
+
+def same_bits(a, b):
+    return (torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a).view(torch.int32),
+        torch.nan_to_num(b).view(torch.int32)))
+
+
+def within_one_ulp(a, b):
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb):
+        return False
+    big = torch.maximum(a[fa].abs(), b[fb].abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    return bool(((a[fa].double() - b[fb].double()).abs()
+                 <= ulp.double()).all())
+
+
+DOY_CASES = ("lanes", "years30", "years40", "edges", "largest")
+
+
 @pytest.mark.parametrize("pctile", [90, 87.5, 10])
-def test_doy_quantile_kernel_matches_plain(dev, pctile):
-    args, _ = clim_inputs(dev)
+@pytest.mark.parametrize("case", DOY_CASES)
+def test_doy_quantile_kernel_matches_plain(dev, case, pctile):
+    args = doy_case(dev, case)
     before = doy_quantile.doy_quantile.launches
     thk, sek = doy_quantile.doy_quantile(*args, pctile=pctile)
     thp, sep = doy_quantile.doy_quantile_plain(*args, pctile=pctile)
+    torch.cuda.synchronize()
     assert doy_quantile.doy_quantile.launches == before + 1
-    assert torch.equal(torch.isnan(thk), torch.isnan(thp))
-    assert torch.equal(torch.nan_to_num(thk), torch.nan_to_num(thp))
-    floats_close(sek, sep, "seas", tol=1e-5)
-    assert bool(torch.isnan(thk[:, 29]).all())
+    assert same_bits(thk, thp)
+    assert within_one_ulp(sek, sep)
+    if case == "lanes":
+        assert bool(torch.isnan(thk[:, 29]).all())
+    if case == "largest":
+        assert args[4] * args[5] == doy_edges.LARGEST_Z
+
+
+def test_doy_quantile_refuses_pools_past_the_tile(dev):
+    args = list(doy_case(dev, "largest"))
+    args[4] += 1  # ny * rmax = 1,824 rows: past the 227 KB shared tile
+    args[1] = torch.zeros(args[3] * args[4], dtype=torch.int32, device=dev)
+    args[2] = torch.zeros_like(args[1])
+    with pytest.raises(ValueError):
+        doy_quantile.doy_quantile(*args)
 
 
 def scan_case(dev, name):

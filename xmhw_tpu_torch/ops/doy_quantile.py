@@ -16,24 +16,31 @@ import torch
 from ..core.clim import pooled_clim
 from . import _build
 
-# the kernel keeps one pool column per thread, 32 threads per block, in
-# shared memory; 227 KB is the most a block may use on the H100
+# a block of the kernel stages the pools of 32 cells (ny*rmax keys each)
+# in shared memory; 227 KB is the most a block may use on the H100
 _SMEM_LIMIT = 232_448
 _CELLS_PER_BLOCK = 32
 
 
-def doy_quantile_plain(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
-    """Plain torch version: gather the (ndoy, ny*rmax, C) pool through
-    the range tables, then the radix select (float32) or masked sort
-    (float64) and masked mean of :func:`core.clim.pooled_clim`."""
+def gather_pool(ts_padded, starts, lens, ndoy, ny, rmax):
+    """The (ndoy, ny*rmax, C) pools through the range tables: row
+    y*rmax + r of pool d is day r of year y's window, NaN past the
+    window's length."""
     dev = ts_padded.device
     r = torch.arange(rmax, dtype=torch.int32, device=dev)
     rows = starts.view(ndoy, ny, 1) + r
     ok = r < lens.view(ndoy, ny, 1)
     rows = torch.where(ok, rows, 0).view(ndoy, ny * rmax).long()
-    vals = ts_padded[rows]  # (ndoy, ny*rmax, C)
-    mask = ok.view(ndoy, ny * rmax, 1) & torch.isfinite(vals)
-    return pooled_clim(vals, mask, pctile)
+    return torch.where(ok.view(ndoy, ny * rmax, 1), ts_padded[rows],
+                       torch.nan)
+
+
+def doy_quantile_plain(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
+    """Plain torch version: :func:`gather_pool`, then the radix select
+    (float32) or masked sort (float64) and masked mean of
+    :func:`core.clim.pooled_clim` over the finite values."""
+    pool = gather_pool(ts_padded, starts, lens, ndoy, ny, rmax)
+    return pooled_clim(pool, torch.isfinite(pool), pctile)
 
 
 def doy_quantile(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
