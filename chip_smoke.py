@@ -18,13 +18,18 @@ Phases, one or more lines each:
    (thresholds bit-equal, means within one float32 ulp), and the radix
    steps its common-prefix skip saves are counted. The running-bound
    kernel (run_bound), which no path calls, is driven here only. The
+   event RLE (rle) is checked bit for bit in its four output modes on the
+   main block and on the segment-edge cases of
+   tests/test_torch_rle_edges.py, and timed in three (the counting launch,
+   the detect launch, today's full=False), each against its own bound. The
    event scan runs again on events that cross every one of its time
    segments' edges;
 4. reference: threshold() + detect() on a small grid, on the card (float32
    kernels) against the plain torch code on the CPU;
 5. slice: threshold(climatologyPeriod=[1983, 2012]) then detect() over a
    synthetic 40-year grid of 4,096 ocean cells; every kernel's launch
-   counter must advance, events must be found and no event may be lost;
+   counter must advance (the RLE's by one counting and one detect launch),
+   events must be found and no event may be lost;
 6. stats: block_average() (one-year blocks with the ts/thresh/seas day
    series, and 5-year blocks) and mhw_rank() of the slice on the card,
    against the host numpy path;
@@ -54,6 +59,7 @@ does a machine without a visible CUDA device.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -270,22 +276,22 @@ def phase_kernels(card):
     pos = torch.from_numpy((doy - 1).astype(np.int32)).to(DEV)
     xt = x[:T]
     bthresh = xt > th.index_select(0, pos.long())
-    fk = rle.mhw_filter(bthresh)
-    fp = rle.mhw_filter_plain(bthresh)
-    for k in fp:
-        if not torch.equal(fk[k], fp[k]):
-            raise AssertionError(f"rle {k}: kernel != plain")
-    nmax = int(fp["n_events"].max())
-    log(f"kernels: rle: {int(fp['n_events'].sum())} events, at most "
+    fk, masks, shapes = rle_kernel(card, bthresh)
+    nmax = int(fk["n_events"].max())
+    log(f"kernels: rle: {int(fk['n_events'].sum())} events, at most "
         f"{nmax} in a cell (K = {K})")
     if nmax > K:
         raise AssertionError(f"{nmax} events in a cell overflow K = {K}")
+    # the detect launch (days mode) is the row's shape; the counting launch
+    # and today's full=False shape go beside it, each with its own bound
+    days = RLE_MODES["days"][2]
     row("rle", "xmhw_tpu_torch/csrc/rle.cu",
         "xmhw_tpu/ops/pallas/rle.py:179", 0.0,
-        lambda: rle.mhw_filter(bthresh, full=False),
-        lambda: rle.mhw_filter_plain(bthresh, full=False),
-        nbytes(bthresh, *rle.mhw_filter(bthresh, full=False).values()),
-        bthresh.numel())
+        rotating(rle.mhw_filter, masks, **days),
+        rotating(rle.mhw_filter_plain, masks, **days),
+        nbytes(bthresh, *fk.values()), bthresh.numel())
+    rows[-1]["shape"] = "days: event_day, is_start, n_events"
+    rows[-1]["shapes"] = shapes
 
     # run_bound: no path calls it, so its launches are this check's
     nb = ~bthresh
@@ -427,6 +433,91 @@ def clim_kernel(card, t, ts, args):
     return thk, sek, worst, nbytes(*args[:3], thk, sek), ops, (call, library)
 
 
+# the RLE's output modes: kernel wrapper, plain version, keywords
+RLE_MODES = {
+    "count": ("event_counts", "event_counts_plain", {}),
+    "days": ("mhw_filter", "mhw_filter_plain", {"full": False,
+                                                "slot": False}),
+    "slots": ("mhw_filter", "mhw_filter_plain", {"full": False}),
+    "full": ("mhw_filter", "mhw_filter_plain", {}),
+}
+
+
+def rotating(fn, masks, **kw):
+    """fn on the next mask of ``masks`` at each call: timed launches read
+    a mask that is not in the 50 MB L2."""
+    it = itertools.cycle(masks)
+    return lambda: fn(next(it), **kw)
+
+
+def rle_same(b, kw, what):
+    """Kernel 2 equals its plain version bit for bit on mask ``b`` in
+    every output mode; returns the days mode's outputs."""
+    import torch
+
+    from xmhw_tpu_torch.ops import rle
+
+    for mode, (kernel, plain, extra) in RLE_MODES.items():
+        k = getattr(rle, kernel)(b, **kw, **extra)
+        p = getattr(rle, plain)(b, **kw, **extra)
+        if sorted(k) != sorted(p):
+            raise AssertionError(f"rle {what} {mode}: keys {sorted(k)}")
+        for name in p:
+            if not torch.equal(k[name], p[name]):
+                raise AssertionError(f"rle {what} {mode} {name}: kernel != "
+                                     "plain")
+        if mode == "days":
+            out = k
+    return out
+
+
+def rle_kernel(card, bthresh):
+    """Kernel 2 against its plain version, bit for bit in every output
+    mode, on the main block and on the segment-edge cases of
+    tests/test_torch_rle_edges.py at their card shapes (T = 14,610 x 64
+    cells but for the short series); its launch shape; the times of the
+    counting launch and of today's full=False shape (slots), each against
+    its own bound, on three masks in turn (180 MB, past the L2). Returns
+    the days mode's outputs on the main block, the masks and the shapes'
+    times."""
+    import torch
+
+    from xmhw_tpu_torch.ops import rle
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_rle_edges as edges
+
+    T, C = bthresh.shape
+    out = rle_same(bthresh, {}, "main block")
+    cfg = rle.launch_config(T)
+    log(f"kernels: rle launch: {cfg['warps']} warps (time segments of "
+        f"{cfg['days']} days) per block, {cfg['threads']} threads, "
+        f"{cfg['smem_bytes']} B of shared memory, {-(-C // 32)} blocks")
+    for name, case in edges.CASES.items():
+        b = torch.from_numpy(edges.edge_mask(name, case.T_card,
+                                             case.C_card)).to(DEV)
+        rle_same(b, edges.kwargs(name), name)
+    log(f"kernels: rle on the {len(edges.CASES)} segment-edge cases "
+        "(T = 14,610 x 64 cells; 33 and 128 cells; T = 1, 7, 15): bit-equal "
+        f"to plain in the modes {list(RLE_MODES)}")
+    masks = [bthresh] + [torch.roll(bthresh, (1000 * i, 7 * i), (0, 1))
+                         .contiguous() for i in (1, 2)]
+    shapes = {}
+    for mode in ("count", "slots"):
+        kernel, plain, extra = RLE_MODES[mode]
+        kernel, plain = getattr(rle, kernel), getattr(rle, plain)
+        moved = nbytes(bthresh, *kernel(bthresh, **extra).values())
+        ms = cuda_ms(rotating(kernel, masks, **extra))
+        pms = cuda_ms(rotating(plain, masks, **extra))
+        bms, by = bound(moved, bthresh.numel())
+        shapes[mode] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                        "bound_by": by}
+        log(f"kernels: rle {mode} shape: kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}: {moved / 1e6:.1f} "
+            f"MB)  [{card}]")
+    return out, masks, shapes
+
+
 def edge_mask(T, C, warps):
     """(T, C) bool: a run across every segment edge of the event-scan
     kernel (warps segments of ceil(T / warps) days) in every cell, starting
@@ -536,9 +627,9 @@ def _t(a):
 def reset_launches():
     from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle
 
-    for fn in (doy_quantile.doy_quantile, rle.mhw_filter,
-               detect_scan.event_stats):
+    for fn in (doy_quantile.doy_quantile, detect_scan.event_stats):
         fn.launches = 0
+    rle.reset_launches()
 
 
 def read_launches():
@@ -574,6 +665,15 @@ def phase_slice(card, da):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the slice: {missing}")
+    from xmhw_tpu_torch.ops import rle
+
+    # one block: the counting launch (no per-day output), then the detect
+    # launch (event_day and is_start, no slot)
+    by_mode = dict(rle.mhw_filter.by_mode)
+    if by_mode != {"count": 1, "days": 1, "slots": 0, "full": 0}:
+        raise AssertionError(f"rle launches by mode {by_mode}: want one "
+                             "count and one days launch")
+    log(f"slice: rle launches by output mode {by_mode}")
     th = clim["thresh"].data[:, ocean]
     if th.shape != (366, C) or not np.isfinite(th).all():
         raise AssertionError(f"thresholds: shape {th.shape} or non-finite")
@@ -603,8 +703,7 @@ def raw_counts(da, clim, ocean):
     th = torch.from_numpy(
         np.ascontiguousarray(clim["thresh"].data[:, ocean])).to(DEV)
     pos = torch.from_numpy(doy - 1).to(DEV)
-    f = rle.mhw_filter_plain(ts > th[pos], full=False)
-    return f["n_events"].cpu().numpy()
+    return rle.event_counts_plain(ts > th[pos])["n_events"].cpu().numpy()
 
 
 def day_series(da, clim):

@@ -32,6 +32,7 @@ from xmhw_tpu_torch.ops import _build, detect_scan, doy_quantile, rle  # noqa
 from xmhw_tpu_torch.ops import run_bound  # noqa: E402
 from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
 import test_torch_doy_edges as doy_edges  # noqa: E402
+import test_torch_rle_edges as rle_edges  # noqa: E402
 import test_torch_scan_edges as edges  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +58,30 @@ TRIALS = [(700, 5, True, 2, False), (700, 5, True, 2, True),
           (64, 2, True, 1, False), (700, 2, True, 1, True)]
 
 
+# the RLE's output modes: kernel wrapper, plain version, keywords
+RLE_MODES = {
+    "count": (rle.event_counts, rle.event_counts_plain, {}),
+    "days": (rle.mhw_filter, rle.mhw_filter_plain,
+             {"full": False, "slot": False}),
+    "slots": (rle.mhw_filter, rle.mhw_filter_plain, {"full": False}),
+    "full": (rle.mhw_filter, rle.mhw_filter_plain, {}),
+}
+
+
+def rle_all_modes(b, kw, what):
+    """The RLE kernel equals its plain version bit for bit on mask ``b``
+    in every output mode, one launch each."""
+    before = rle.mhw_filter.launches
+    for mode, (kernel, plain, extra) in RLE_MODES.items():
+        k = kernel(b, **kw, **extra)
+        p = plain(b, **kw, **extra)
+        assert sorted(k) == sorted(p), mode
+        for name in p:
+            assert torch.equal(k[name], p[name]), (name, mode, what)
+    torch.cuda.synchronize()
+    assert rle.mhw_filter.launches == before + len(RLE_MODES)
+
+
 @pytest.mark.parametrize("trial", range(len(TRIALS)))
 def test_rle_kernel_bit_equal(dev, trial):
     T, md, jg, mg, qk = TRIALS[trial]
@@ -68,15 +93,31 @@ def test_rle_kernel_bit_equal(dev, trial):
     b[:, 8] = False  # no event at all
     kw = dict(min_duration=md, join_gaps=jg, max_gap=mg,
               day0_fillna_quirk=qk)
-    before = rle.mhw_filter.launches
-    for full in (True, False):
-        k = rle.mhw_filter(b, full=full, **kw)
-        p = rle.mhw_filter_plain(b, full=full, **kw)
-        assert sorted(k) == sorted(p)
-        for name in p:
-            assert torch.equal(k[name], p[name]), (name, full)
-    torch.cuda.synchronize()
-    assert rle.mhw_filter.launches == before + 2
+    rle_all_modes(b, kw, trial)
+
+
+@pytest.mark.parametrize("name", list(rle_edges.CASES))
+def test_rle_kernel_segment_edges(dev, name):
+    """The segment-edge cases of tests/test_torch_rle_edges.py at their
+    card shapes (T = 14,610 but for the short series)."""
+    case = rle_edges.CASES[name]
+    assert rle.launch_config(case.T_card)["warps"] == rle_edges.WARPS
+    b = torch.from_numpy(rle_edges.edge_mask(name, case.T_card,
+                                             case.C_card)).to(dev)
+    rle_all_modes(b, rle_edges.kwargs(name), name)
+
+
+def test_rle_kernel_past_shared_memory(dev):
+    """A series too long for the bit words in shared memory (over 47,104
+    days) keeps them in global scratch."""
+    T = 60000
+    assert _build.library().xmhw_rle_scratch(T, 40) > 0
+    assert _build.library().xmhw_rle_scratch(14610, 40) == 0
+    rng = np.random.default_rng(2)
+    b = torch.from_numpy(rng.random((T, 40)) < 0.5).to(dev)
+    b[T // 3:T // 2, 5] = True
+    rle_all_modes(b, dict(min_duration=5, join_gaps=True, max_gap=2,
+                          day0_fillna_quirk=True), "long")
 
 
 def clim_inputs(dev, C=300, years=4, seed=1):
@@ -342,8 +383,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 def test_broken_source_build_raises(dev, tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
-    src = csrc / "rle.cu"
-    src.write_text(src.read_text().replace("int cnt = 0;", "int cnt = 0"))
+    src = csrc / "runtime.cu"
+    text = src.read_text()
+    broken = text.replace("#include <cuda_runtime.h>",
+                          "#include <cuda_runtime.h>\nint broken = ;")
+    assert broken != text
+    src.write_text(broken)
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="error"):

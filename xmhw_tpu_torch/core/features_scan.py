@@ -141,11 +141,12 @@ def _intermediate(ts, thresh_t, seas_t, bthresh, f):
 
 def count_events(ts, th, doy_pos, min_duration=5, join_gaps=True,
                  max_gap=2, day0_fillna_quirk=False, use_kernels=False):
-    """Events per cell (C,) int32: the counting pass that fixes K."""
-    filt = rle.mhw_filter if use_kernels else rle.mhw_filter_plain
+    """Events per cell (C,) int32: the counting pass that fixes K. The
+    RLE kernel writes nothing per day for it."""
+    count = rle.event_counts if use_kernels else rle.event_counts_plain
     bthresh = ts > th.index_select(0, doy_pos.long())
-    return filt(bthresh, min_duration, join_gaps, max_gap,
-                day0_fillna_quirk, full=False)["n_events"]
+    return count(bthresh, min_duration, join_gaps, max_gap,
+                 day0_fillna_quirk)["n_events"]
 
 
 def detect_kernel(ts, th, se, doy_pos, K, min_duration=5, join_gaps=True,
@@ -163,8 +164,10 @@ def detect_kernel(ts, th, se, doy_pos, K, min_duration=5, join_gaps=True,
     thresh_t = th.index_select(0, doy_pos.long())
     bthresh = ts > thresh_t
     filt = rle.mhw_filter if use_kernels else rle.mhw_filter_plain
+    # the event scan reads event_day and is_start; slot and the per-day
+    # event ids only the intermediate output reads
     f = filt(bthresh, min_duration, join_gaps, max_gap, day0_fillna_quirk,
-             full=intermediate)
+             full=intermediate, slot=intermediate)
     scan = (detect_scan.event_stats if use_kernels
             else detect_scan.event_stats_plain)
     F, I = scan(ts, th, se, doy_pos, f["event_day"], f["is_start"], K)

@@ -35,7 +35,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "xmhw_doy_quantile": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "xmhw_rle": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                 _P),
+                 _P, _P),
     "xmhw_event_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P),
     "xmhw_run_bound": (_P, _I, _I, _I, _P, _P),
@@ -99,6 +99,10 @@ def library() -> ctypes.CDLL:
     lib.xmhw_event_scan_config.restype = None
     lib.xmhw_event_scan_scratch.argtypes = [_I, _I]
     lib.xmhw_event_scan_scratch.restype = ctypes.c_longlong
+    lib.xmhw_rle_config.argtypes = [_I] + [ctypes.POINTER(_I)] * 4
+    lib.xmhw_rle_config.restype = None
+    lib.xmhw_rle_scratch.argtypes = [_I, _I]
+    lib.xmhw_rle_scratch.restype = ctypes.c_longlong
     return lib
 
 
