@@ -17,7 +17,10 @@ Phases, one or more lines each:
    tables, a block of edge pools and the largest pool its wrapper takes
    (thresholds bit-equal, means within one float32 ulp), and the radix
    steps its common-prefix skip saves are counted. The running-bound
-   kernel (run_bound), which no path calls, is driven here only. The
+   kernel (run_bound), which no path calls, is driven here and in the
+   mesh phase: bit for bit, forward and backward, on the main block and
+   on the segment-edge cases of tests/test_torch_run_bound_edges.py (60,000
+   days among them), timed per direction. The
    event RLE (rle) is checked bit for bit in its four output modes on the
    main block and on the segment-edge cases of
    tests/test_torch_rle_edges.py, and timed in three (the counting launch,
@@ -35,14 +38,22 @@ Phases, one or more lines each:
    against the host numpy path;
 7. fused: run_fused on the same data, with its stats stage, must
    reproduce the slice, its block_average and its mhw_rank;
-8. stream steps: the device steps only the streamed stages run
+8. mesh: the slice's threshold() + detect() and run_fused (with its
+   stats stage) over a cell mesh of [cuda:0, cuda:0], and of every GPU when
+   more than one is visible: equal to the single-device runs bit for bit,
+   every kernel launched once per shard; the walls of one device and of
+   the mesh, in turns, and the count of visible GPUs; run_fused over the
+   slice twice side by side (8,192 cells: 4,096 a device), one device
+   against the mesh, in turns and bit-equal; run_bound on the mesh's
+   shards of the slice's exceedance mask (make_cell_array);
+9. stream steps: the device steps only the streamed stages run
    (stream_block_average's float64 event and day statistics of one stripe,
    stream_rank's batched ranks), on the slice's events, on the card
    against the CPU;
-9. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
+10. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
    the standard shapes on the card; every kernel's launch counter must
    advance;
-10. stream: the streamed pipelines file to file, which read and write
+11. stream: the streamed pipelines file to file, which read and write
    NetCDF through h5py. Where h5py is installed: a 160 x 64 grid (10,240
    cells, ~20 % land, 40 daily years, float32, ~600 MB) through stream_run
    (3 stripes) and through the staged chain stream_threshold ->
@@ -52,7 +63,9 @@ Phases, one or more lines each:
    ``run`` on a small grid in a subprocess. Where h5py is missing, one line
    says that the phase did not run and why.
 
-Then a JSON line with one entry per kernel, and last the line
+Then a JSON line with one entry per kernel (``launches``: in the slice;
+``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0]), and last
+the line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a visible CUDA device.
 """
@@ -297,12 +310,9 @@ def phase_kernels(card):
     nb = ~bthresh
     run_bound.run_bound.launches = 0
     for mask in (bthresh, nb):
-        for fwd in (True, False):
-            if not torch.equal(run_bound.run_bound(mask, fwd),
-                               run_bound.run_bound_plain(mask, fwd)):
-                raise AssertionError(f"run_bound forward={fwd}: kernel != "
-                                     "plain")
+        run_bound_same(mask, "main block")
     launched = run_bound.run_bound.launches
+    run_bound_edges(card, T, CELLS)
     # the yardstick: cummax/cummin of the masked day index, with the where
     # and the flips outside the timed window
     tt = torch.arange(T, dtype=torch.int32, device=DEV).view(T, 1)
@@ -319,9 +329,13 @@ def phase_kernels(card):
          "where(mask, t, T))",
          lambda: (torch.cummax(fwd, 0), torch.cummin(bwd, 0))))
     rows[-1].update(launches=launched, path="kernels phase only")
+    per = {d: cuda_ms(lambda: run_bound.run_bound(nb, d == "forward"))
+           for d in ("forward", "backward")}
+    rows[-1]["directions_ms"] = per
     log("kernels: run_bound: forward and backward on the mask and its "
         "negation equal the plain version; times are one forward + "
-        "backward pair")
+        f"backward pair (forward {per['forward']:.3f} ms, backward "
+        f"{per['backward']:.3f} ms)  [{card}]")
 
     args3 = (xt, th, se, pos, fk["event_day"], fk["is_start"], K)
     Fk, Ik = detect_scan.event_stats(*args3)
@@ -431,6 +445,50 @@ def clim_kernel(card, t, ts, args):
     call = ("torch.nanquantile(pool, 0.9, dim=1, interpolation='linear') + "
             "torch.nanmean(pool, dim=1)")
     return thk, sek, worst, nbytes(*args[:3], thk, sek), ops, (call, library)
+
+
+def run_bound_same(mask, what):
+    """Kernel 4 equals its plain version bit for bit on ``mask``, forward
+    and backward."""
+    import torch
+
+    from xmhw_tpu_torch.ops import run_bound
+
+    for fwd in (True, False):
+        if not torch.equal(run_bound.run_bound(mask, fwd),
+                           run_bound.run_bound_plain(mask, fwd)):
+            raise AssertionError(f"run_bound {what} forward={fwd}: kernel "
+                                 "!= plain")
+
+
+def run_bound_edges(card, T, C):
+    """Kernel 4's launch shape at T days, and the kernel against its
+    plain version on the segment-edge cases of
+    tests/test_torch_run_bound_edges.py at their card shapes, on each mask
+    and its negation."""
+    import torch
+
+    from xmhw_tpu_torch.ops import run_bound
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_run_bound_edges as edges
+
+    cfg = run_bound.launch_config(T)
+    if cfg["warps"] != edges.WARPS:
+        raise AssertionError(f"run_bound runs {cfg['warps']} warps, the "
+                             f"edge cases assume {edges.WARPS}")
+    log(f"kernels: run_bound launch: {cfg['warps']} warps (time segments "
+        f"of {cfg['days']} days) per block, {cfg['threads']} threads, "
+        f"{cfg['smem_bytes']} B of shared memory, {-(-C // 32)} blocks")
+    for name, case in edges.CASES.items():
+        m = torch.from_numpy(edges.edge_mask(name, case.T_card,
+                                             case.C_card)).to(DEV)
+        for mask in (m, ~m):
+            run_bound_same(mask, name)
+    log(f"kernels: run_bound on the {len(edges.CASES)} segment-edge cases "
+        "(T = 14,610 x 64 cells; 1 and 33 cells; T = 1, 5, 33; 60,000 "
+        "days), each mask and its negation: bit-equal to plain, forward and "
+        "backward")
 
 
 # the RLE's output modes: kernel wrapper, plain version, keywords
@@ -790,28 +848,18 @@ def phase_stats(card, da, clim, mhw):
 
 def phase_fused(card, da, clim, mhw, stats):
     """run_fused (one upload per block) with its stats stage must
-    reproduce the slice, its block_average and its mhw_rank."""
-    from xmhw_tpu_torch.core.calendar import compute_doy
+    reproduce the slice, its block_average and its mhw_rank. Returns its
+    outputs and wall."""
     from xmhw_tpu_torch.core.features_scan import TABLE_VARS
-    from xmhw_tpu_torch.core.pipeline import run_fused
-    from xmhw_tpu_torch.core.stats import day_block_edges
-    from xmhw_tpu_torch.xrlite import TimeIndex
 
     ocean = ocean_of(da)
     tvals = np.asarray(da.coords["time"].values)
-    doy, _ = compute_doy(TimeIndex(tvals))
     years = tvals.astype("datetime64[Y]").astype(int) + 1970
-    sel = (years >= CLIM_YEARS[0]) & (years <= CLIM_YEARS[1])
     bins = np.arange(years[0], years[-1] + 2)
     ts = np.ascontiguousarray(da.data[:, ocean])
     reset_launches()
-    t = time.perf_counter()
-    th, se, tables, nev, extras = run_fused(
-        ts, doy, (doy - 1).astype(np.int32), ts_clim_np=ts[sel],
-        doy_clim_np=doy[sel], ybod_np=(years - bins[0]).astype(np.int32),
-        nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
-        count_nans=True, rank_names=RANKED, device=DEV)
-    wall = time.perf_counter() - t
+    out, wall = fused_run(da)
+    th, se, tables, nev, extras = out
     launches = read_launches()
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
@@ -835,6 +883,180 @@ def phase_fused(card, da, clim, mhw, stats):
         f"block_average/mhw_rank (max |diff| {errs:.3g}; {ts.shape[1]} "
         f"cells, {len(bins) - 1} year blocks, ranks of {list(RANKED)} in "
         f"{wall:.3f} s; launches {launches})  [{card}]")
+    return out, wall
+
+
+def fused_run(da, mesh=None, copies=1):
+    """run_fused over the ocean cells of ``da`` (side by side ``copies``
+    times) with the slice's climatology period and its stats stage
+    (one-year blocks, nan_days, ranks of RANKED), as phase_fused drives
+    it; ``mesh`` splits each block. Returns (its outputs, the wall in s,
+    synchronised)."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.core.pipeline import run_fused
+    from xmhw_tpu_torch.core.stats import day_block_edges
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    ocean = ocean_of(da)
+    tvals = np.asarray(da.coords["time"].values)
+    doy, _ = compute_doy(TimeIndex(tvals))
+    years = tvals.astype("datetime64[Y]").astype(int) + 1970
+    sel = (years >= CLIM_YEARS[0]) & (years <= CLIM_YEARS[1])
+    bins = np.arange(years[0], years[-1] + 2)
+    ts = np.ascontiguousarray(np.tile(da.data[:, ocean], (1, copies)))
+    t = time.perf_counter()
+    out = run_fused(
+        ts, doy, (doy - 1).astype(np.int32), ts_clim_np=ts[sel],
+        doy_clim_np=doy[sel], ybod_np=(years - bins[0]).astype(np.int32),
+        nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
+        count_nans=True, rank_names=RANKED, mesh=mesh, device=DEV)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def slice_run(da, **kw):
+    """threshold() then detect() of ``da`` as phase_slice calls them, with
+    the keywords ``kw`` (``mesh``, ``device``). Returns (clim, mhw, wall in
+    s, synchronised)."""
+    import torch
+
+    import xmhw_tpu_torch as xt
+
+    t = time.perf_counter()
+    clim = xt.threshold(da, climatologyPeriod=CLIM_YEARS, **kw)
+    mhw = xt.detect(da, clim["thresh"], clim["seas"], events_layout="compact",
+                    **kw)
+    torch.cuda.synchronize()
+    return clim, mhw, time.perf_counter() - t
+
+
+def same_data(a, b, what):
+    """Two Datasets hold the same variables with equal data, bit for bit
+    (NaN and NaT where the other has them)."""
+    if sorted(a.keys()) != sorted(b.keys()):
+        raise AssertionError(f"{what}: variables differ")
+    for k in a.keys():
+        x, y = np.asarray(a[k].data), np.asarray(b[k].data)
+        if x.dtype.kind == "M":
+            x, y = x.astype("i8"), y.astype("i8")
+        if x.shape != y.shape or not np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f"):
+            raise AssertionError(f"{what} {k}: not bit-equal")
+
+
+def same_fused(a, b, what):
+    """Two run_fused outputs are equal bit for bit."""
+    for name, x, y in (("thresh", a[0], b[0]), ("seas", a[1], b[1]),
+                       ("n_events", a[3], b[3])):
+        if not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what} {name}: not bit-equal")
+    pairs = [(("tbl", k), a[2][k], b[2].get(k)) for k in a[2]]
+    pairs += [((part, k), v, b[4].get(part, {}).get(k))
+              for part, d in a[4].items() for k, v in d.items()]
+    for key, x, y in pairs:
+        if y is None or not np.array_equal(x, y, equal_nan=True):
+            raise AssertionError(f"{what} {key}: not bit-equal")
+
+
+def phase_mesh(card, da, clim, mhw, fused):
+    """The slice over a cell mesh of [cuda:0, cuda:0] (and of every GPU
+    when more than one is visible): threshold() + detect() and run_fused
+    with its stats stage must equal the single-device runs bit for bit,
+    and every kernel must launch once per shard. Walls of one device and
+    of the mesh, in turns. Kernel 4 on the mesh's shards of the slice's
+    exceedance mask (make_cell_array). Returns each kernel's launches in
+    the mesh run of threshold() + detect() (kernel 4: on the shards)."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.ops import rle, run_bound
+    from xmhw_tpu_torch.parallel import cell_mesh, make_cell_array
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    n_dev = torch.cuda.device_count()
+    one = f"{DEV}:0" if DEV == "cuda" else DEV
+    meshes = {"[cuda:0, cuda:0]": cell_mesh([one, one])}
+    if n_dev > 1:
+        meshes[f"all {n_dev} GPUs"] = cell_mesh()
+    counts = None
+    for label, mesh in meshes.items():
+        n = len(mesh)
+        want = {"doy_quantile": n, "rle": 2 * n, "detect_scan": n}
+
+        def mesh_slice():
+            c, m, w = slice_run(da, mesh=mesh)
+            for v in ("thresh", "seas"):
+                if not np.array_equal(c[v].data, clim[v].data,
+                                      equal_nan=True):
+                    raise AssertionError(f"mesh {label} {v} != slice")
+            same_data(m, mhw, f"mesh {label} events")
+            return w
+
+        # the first mesh run: its launches, one per shard (and a warm-up)
+        reset_launches()
+        first = mesh_slice()
+        got = read_launches()
+        by_mode = dict(rle.mhw_filter.by_mode)
+        if got != want or by_mode["count"] != n:
+            raise AssertionError(f"mesh {label} launches {got} (rle by mode "
+                                 f"{by_mode}): want {want}, one per shard")
+        counts = counts or got
+        walls = {"one": [], "mesh": []}
+        for who in ("one", "mesh", "mesh", "one"):
+            walls[who].append(mesh_slice() if who == "mesh" else
+                              slice_run(da, device=one)[2])
+        reset_launches()
+        out, w = fused_run(da, mesh=mesh)
+        if read_launches() != want:
+            raise AssertionError(f"mesh {label} run_fused launches "
+                                 f"{read_launches()}: want {want}")
+        same_fused(fused[0], out, f"mesh {label} run_fused")
+        log(f"mesh: {label}: threshold+detect equal the single-device "
+            f"slice bit for bit; first mesh run {first:.3f} s, then walls "
+            f"in turns: one device {walls['one'][0]:.3f}, "
+            f"{walls['one'][1]:.3f} s, mesh {walls['mesh'][0]:.3f}, "
+            f"{walls['mesh'][1]:.3f} s; run_fused with stats and ranks "
+            f"bit-equal in {w:.3f} s (one device {fused[1]:.3f} s); "
+            f"launches {got} (one per shard); {n_dev} CUDA device(s) "
+            f"visible  [{card}]")
+    # at twice the slice's width each device gets a 4,096-cell block, the
+    # production width: the one-device run takes two blocks, the mesh one
+    # step of two shards; one untimed run each first
+    mesh = meshes["[cuda:0, cuda:0]"]
+    wide = {"one device": [], "mesh": []}
+    outs = {}
+    for i, who in enumerate(("one device", "mesh") * 2 +
+                            ("mesh", "one device")):
+        outs[who], w = fused_run(da, mesh=mesh if who == "mesh" else None,
+                                 copies=2)
+        if i >= 2:
+            wide[who].append(w)
+    same_fused(outs["one device"], outs["mesh"], "mesh run_fused, twice "
+               "the slice")
+    one_w, mesh_w = wide["one device"], wide["mesh"]
+    log(f"mesh: run_fused with stats over {len(outs['mesh'][3])} cells "
+        f"(the slice twice; 4,096 cells a device), after one run each: one "
+        f"device {one_w[0]:.3f}, {one_w[1]:.3f} s, mesh [cuda:0, cuda:0] "
+        f"{mesh_w[0]:.3f}, {mesh_w[1]:.3f} s; bit-equal  [{card}]")
+    # kernel 4 on the shards of the slice's exceedance mask
+    ocean = ocean_of(da)
+    doy, _ = compute_doy(TimeIndex(np.asarray(da.coords["time"].values)))
+    above = (da.data[:, ocean] > clim["thresh"].data[:, ocean][doy - 1])
+    shards = make_cell_array(mesh, above.shape, lambda idx: above[idx])
+    run_bound.run_bound.launches = 0
+    for mask in shards:
+        run_bound_same(mask, "mesh shard")
+    bounds = run_bound.run_bound.launches
+    if bounds != 2 * len(mesh):
+        raise AssertionError(f"run_bound launched {bounds} times on the "
+                             "mesh's shards")
+    log(f"mesh: run_bound on the {len(shards)} shards "
+        f"{[tuple(t.shape) for t in shards]} of the slice's exceedance mask "
+        f"(make_cell_array): bit-equal to plain, {bounds} launches  "
+        f"[{card}]")
+    return dict(counts, run_bound=bounds)
 
 
 def fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax):
@@ -1118,13 +1340,15 @@ def main():
     da = grid(daily(T0, T1), 64, 80, seed=3, land=64 * 80 - CELLS)
     clim, mhw, launches = phase_slice(card, da)
     stats = phase_stats(card, da, clim, mhw)
-    phase_fused(card, da, clim, mhw, stats)
+    fused = phase_fused(card, da, clim, mhw, stats)
+    mesh_launches = phase_mesh(card, da, clim, mhw, fused)
     phase_stream_steps(card, da, clim, mhw)
     phase_cli(card)
     phase_stream(card)
     for r in rows:
         if r["name"] in launches:  # run_bound: counted in phase_kernels
             r["launches"] = launches[r["name"]]
+        r["mesh_launches"] = mesh_launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

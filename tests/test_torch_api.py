@@ -207,8 +207,15 @@ def test_flip_cold_and_validation(grid):
                   device="cpu")
     with pytest.raises(xt.XmhwException):
         xt.threshold(grid, smoothPercentileWidth=30, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh"):
         xt.threshold(grid, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        xt.detect(grid, ds["thresh"], ds["seas"], mesh=[torch.device("cpu")],
+                  device="cpu")
+    # a mesh of three CPU entries gives the single-device climatology
+    meshed = xt.threshold(grid, mesh=xt.parallel.cell_mesh(
+        [torch.device("cpu")] * 3), device="cpu")
+    same_ds(ds, meshed)
     mhw = xt.detect(grid, ds["thresh"], ds["seas"], device="cpu")
     flipped = xt.flip_cold(mhw.copy())
     np.testing.assert_array_equal(flipped["intensity_max"].data,

@@ -33,6 +33,7 @@ from xmhw_tpu_torch.ops import run_bound  # noqa: E402
 from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
 import test_torch_doy_edges as doy_edges  # noqa: E402
 import test_torch_rle_edges as rle_edges  # noqa: E402
+import test_torch_run_bound_edges as rb_edges  # noqa: E402
 import test_torch_scan_edges as edges  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -306,6 +307,117 @@ def test_run_bound_kernel_bit_equal(dev, T, C):
             assert torch.equal(k, p), (forward, T, C)
     torch.cuda.synchronize()
     assert run_bound.run_bound.launches == before + 4
+
+
+@pytest.mark.parametrize("name", list(rb_edges.CASES))
+def test_run_bound_kernel_segment_edges(dev, name):
+    """The segment-edge cases of tests/test_torch_run_bound_edges.py at
+    their card shapes (60,000 days among them): both directions, on the
+    mask and its negation."""
+    case = rb_edges.CASES[name]
+    assert run_bound.launch_config(case.T_card)["warps"] == rb_edges.WARPS
+    m = torch.from_numpy(rb_edges.edge_mask(name, case.T_card,
+                                            case.C_card)).to(dev)
+    before = run_bound.run_bound.launches
+    for mask in (m, ~m):
+        for forward in (True, False):
+            assert torch.equal(run_bound.run_bound(mask, forward),
+                               run_bound.run_bound_plain(mask, forward)), (
+                name, forward)
+    torch.cuda.synchronize()
+    assert run_bound.run_bound.launches == before + 4
+
+
+def mesh_inputs(C=300, years=3):
+    """A float32 series and the pipeline's calendar arguments."""
+    (x, *_), doy = clim_inputs(torch.device("cpu"), C=C, years=years,
+                               seed=7)
+    ts = x[:len(doy)].numpy()
+    years_of = (np.arange("2001-01-01", f"{2001 + years}-01-01",
+                          dtype="datetime64[D]").astype("datetime64[Y]")
+                .astype(int) + 1970)
+    return ts, doy, years_of
+
+
+def launch_counts():
+    return (doy_quantile.doy_quantile.launches, rle.mhw_filter.launches,
+            detect_scan.event_stats.launches)
+
+
+def test_mesh_on_one_card_matches_single(dev):
+    """run_clim, run_detect and run_fused (with its stats stage and
+    ranks) on a mesh of [cuda:0, cuda:0] equal the single-device run bit
+    for bit, and each kernel launches once per shard."""
+    from xmhw_tpu_torch.core.stats import day_block_edges
+    from xmhw_tpu_torch.parallel import cell_mesh
+
+    ts, doy, years = mesh_inputs()
+    pos = (doy - 1).astype(np.int32)
+    mesh = cell_mesh(["cuda:0", "cuda:0"])
+    out = {}
+    for label, kw in (("single", {}), ("mesh", {"mesh": mesh})):
+        before = launch_counts()
+        th, se = pipeline.run_clim(ts, doy, 5, 366, 90, True, 31, True,
+                                   device="cuda", **kw)
+        tables, nev, _ = pipeline.run_detect(ts, th, se, pos, 5, True, 2,
+                                             device="cuda", **kw)
+        torch.cuda.synchronize()
+        launches = [b - a for a, b in zip(before, launch_counts())]
+        bins = np.arange(years[0], years[-1] + 2)
+        fused = pipeline.run_fused(
+            ts, doy, pos, ybod_np=(years - bins[0]).astype(np.int32),
+            nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
+            count_nans=True, rank_names=("intensity_max", "duration"),
+            device="cuda", **kw)
+        out[label] = (th, se, tables, nev, fused, launches)
+    a, b = out["single"], out["mesh"]
+    # clim: 1 launch a shard; detect: a counting and a detect RLE launch
+    assert a[5] == [1, 2, 1] and b[5] == [2, 4, 2]
+    for x, y in zip(a[:2], b[:2]):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a[3], b[3])
+    for k in a[2]:
+        np.testing.assert_array_equal(a[2][k], b[2][k], err_msg=k)
+    fa, fb = a[4], b[4]
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(fa[i], fb[i])
+    for k in fa[2]:
+        np.testing.assert_array_equal(fa[2][k], fb[2][k], err_msg=k)
+    for part in fa[4]:
+        for k in fa[4][part]:
+            np.testing.assert_array_equal(fa[4][part][k], fb[4][part][k],
+                                          err_msg=f"{part} {k}")
+
+
+def test_kernels_on_a_second_card(dev):
+    """Each kernel launches on its tensor's device, not the current one:
+    inputs on cuda:1 while cuda:0 is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two visible GPUs")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    m = torch.from_numpy(np.random.default_rng(5).random((3001, 300))
+                         > 0.6).to(d1)
+    for forward in (True, False):
+        assert torch.equal(run_bound.run_bound(m, forward),
+                           run_bound.run_bound_plain(m, forward))
+    k = rle.mhw_filter(m)
+    p = rle.mhw_filter_plain(m)
+    for name in p:
+        assert torch.equal(k[name], p[name]), name
+    args = tuple(a.to(d1) if torch.is_tensor(a) else a
+                 for a in doy_case(dev, "lanes"))
+    thk, sek = doy_quantile.doy_quantile(*args)
+    thp, sep = doy_quantile.doy_quantile_plain(*args)
+    assert thk.device == d1 and same_bits(thk, thp)
+    ts, th, se, pos = (a.to(d1) for a in scan_case(dev, "walk"))
+    f = rle.mhw_filter_plain(ts > th[pos.long()])
+    sargs = (ts, th, se, pos, f["event_day"], f["is_start"], 64)
+    Fk, Ik = detect_scan.event_stats(*sargs)
+    Fp, Ip = detect_scan.event_stats_plain(*sargs)
+    torch.cuda.synchronize(d1)
+    assert torch.equal(Ik, Ip)
+    floats_close(Fk, Fp, "scan on cuda:1")
 
 
 def stats_events(dev):

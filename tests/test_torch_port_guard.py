@@ -57,6 +57,9 @@ PORTED = {
     "stream.py": {"stream_threshold", "stream_detect", "stream_block_average",
                   "stream_rank", "stream_run", "_cats_kernel", "_kcache_file"},
     "__main__.py": {"main", "_warmup", "build_parser"},
+    # the torch mesh: CELL_AXIS and pad_cells stay copies
+    "parallel/mesh.py": {"cell_mesh", "cell_sharding", "replicated",
+                         "make_cell_array"},
 }
 # top-level names of the original that the port leaves out: the jit cache
 # of _cats_kernel, and the JAX compile-cache switch (torch has none)
@@ -133,6 +136,7 @@ def test_port_imports_no_jax():
             "xmhw_tpu_torch.identify, xmhw_tpu_torch.stats, "
             "xmhw_tpu_torch.features, xmhw_tpu_torch.xmhw, "
             "xmhw_tpu_torch.ops.run_bound, xmhw_tpu_torch.stream, "
+            "xmhw_tpu_torch.parallel.mesh, "
             "xmhw_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'xmhw_tpu')]; print(bad); "

@@ -290,9 +290,17 @@ def test_cuda_without_gpu_raises(grid_file, tmp_path, fn):
 
 
 def test_mesh_is_refused(grid_file, tmp_path):
-    with pytest.raises(NotImplementedError, match="one device"):
-        xt.stream_threshold(grid_file, "sst", str(tmp_path / "c.nc"),
-                            mesh=object(), device="cpu")
+    """A ``mesh`` that is not a cell mesh raises before anything is
+    written (a cell mesh runs: tests/test_torch_mesh.py)."""
+    for fn in (xt.stream_threshold, xt.stream_run):
+        with pytest.raises(TypeError, match="mesh"):
+            fn(grid_file, "sst", str(tmp_path / "c.nc"),
+               *[str(tmp_path / "m.nc")] * (fn is xt.stream_run),
+               mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        xt.stream_detect(grid_file, "sst", grid_file, str(tmp_path / "m.nc"),
+                         mesh=("cpu", "cpu"), device="cpu")
+    assert not list(tmp_path.iterdir())
 
 
 def test_kcache_round_trip(grid_file, tmp_path, monkeypatch):

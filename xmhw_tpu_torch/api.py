@@ -3,11 +3,16 @@
 Port of :mod:`xmhw_tpu.api`. Signatures, parameter names, defaults,
 validation errors, output variables and attributes match the reference
 (threshold: xmhw/xmhw.py:38-51, detect: xmhw/xmhw.py:310-323); all cells
-are processed as dense (time, cell) torch tensors in cell blocks on one
-device (see :mod:`xmhw_tpu_torch.core.pipeline`).
+are processed as dense (time, cell) torch tensors in cell blocks,
+optionally split over a cell mesh of devices (see
+:mod:`xmhw_tpu_torch.core.pipeline`).
 
 Added: ``device`` (default ``"cuda"``; a CUDA device without a GPU
-raises). ``mesh`` is accepted for signature parity and must be None.
+raises). ``mesh``: None, or a :func:`xmhw_tpu_torch.parallel.cell_mesh`
+whose devices split each cell block (``device`` is then not read); with
+None and ``device="cuda"`` every GPU is used when more than one is
+visible (the JAX package's default); ``"cuda:0"`` or ``"cpu"`` mean one
+device. Anything else raises TypeError.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from .annotate import annotate_ds, detect_params_attr, threshold_params_attr
 from .core.calendar import compute_doy, get_calendar
-from .core.pipeline import resolve_device, run_clim, run_detect
+from .core.pipeline import mesh_device, run_clim, run_detect
 from .core.point import (point_clim, point_detect, point_interpolate_na,
                          runavg_circular_np as _runavg_circular_np)
 from .exception import XmhwException
@@ -137,9 +142,10 @@ def threshold(
       there). The argument is accepted for compatibility.
     * Extras: ``dtype`` (default float32, which runs the CUDA kernels on
       the GPU; float64 runs the plain torch code for exact reference
-      parity), ``cell_block`` (cells per device step), ``device``.
+      parity), ``cell_block`` (cells per step over the mesh), ``mesh``
+      (see the module docstring), ``device``.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     temp = as_dataarray(temp)
     if smoothPercentileWidth % 2 == 0:
         raise XmhwException("smoothPercentileWidth should be odd")
@@ -320,9 +326,10 @@ def detect(
     reference identify.py:441). Default False treats day-0 runs like any
     other run (a deliberate fix; see core/events.py).
 
-    ``device``: where the cell blocks run (default ``"cuda"``).
+    ``device``: where the cell blocks run (default ``"cuda"``); ``mesh``
+    as in :func:`threshold`.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     temp = as_dataarray(temp)
     th = as_dataarray(th)
     se = as_dataarray(se)

@@ -33,6 +33,19 @@ def _const(v, dt, like):
     return torch.tensor(v, dtype=dt, device=like.device)
 
 
+def ordered_sum(x, dim, dtype=None):
+    """Sum along ``dim`` in index order, one running sum per output.
+
+    torch's ``sum`` vectorises across the other axes, so an output's bits
+    depend on how many outputs lie beside it: on the width of a cell
+    block, or of a mesh shard. A running sum (``cumsum``) adds each
+    output's terms in index order whatever the width, so a cell mesh run
+    equals the single-device run bit for bit."""
+    if x.shape[dim] == 0:
+        return x.sum(dim=dim, dtype=dtype)
+    return torch.cumsum(x, dim=dim, dtype=dtype).select(dim, -1).clone()
+
+
 def _float_key(x):
     """Monotonic float32 -> SIGNED int32 key (total order).
 
@@ -147,7 +160,7 @@ def pooled_clim(vals, mask, pctile):
         thresh = _select_quantile(vals, mask, pctile)
     # the mean is summed and divided in float64 and rounded once, so that
     # kernel 1 (which sums in another order) agrees with it to the ulp
-    ssum = torch.where(mask, vals, 0.0).sum(dim=1, dtype=torch.float64)
+    ssum = ordered_sum(torch.where(mask, vals, 0.0), 1, torch.float64)
     seas = torch.where(n > 0, ssum / torch.clamp(n, min=1), torch.nan)
     return thresh, seas.to(vals.dtype)
 

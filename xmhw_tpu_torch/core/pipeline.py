@@ -1,15 +1,21 @@
-"""Host <-> device orchestration: cell blocks, K selection, downloads.
+"""Host <-> device orchestration: cell blocks, the cell mesh, K selection,
+downloads.
 
-Port of :mod:`xmhw_tpu.core.pipeline` for one device. Cells are processed
-in fixed-size blocks; each block is uploaded once and stays on the device
-through every stage, and each block's results come back in one copy per
-dtype (:func:`fetch_rows`).
+Port of :mod:`xmhw_tpu.core.pipeline`. Cells are processed in fixed-size
+blocks, and each block is split over the devices of a cell mesh
+(:mod:`xmhw_tpu_torch.parallel.mesh`; one device is a mesh of one). Each
+shard is uploaded once and stays on its device through every stage; each
+stage is issued on every shard before the host waits for any of them, and
+the host waits once per stage (the count that fixes K, the overflow check,
+the downloads). Each shard's results come back in one copy per dtype
+(:func:`fetch_rows`) into its cell range. The event capacity K is one
+value per block, the maximum over its shards, as in the JAX package's
+sharded block, so a mesh run gives the single-device run's tables.
 
 float32 on the GPU runs the three CUDA kernels (clim percentile, event
 RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
 code. The stats stage of :func:`run_fused` is torch reductions
-(core/stats.py). CPU tensors always take the plain versions. There is no
-device mesh: ``mesh``/``use_mesh`` accept only None/False.
+(core/stats.py). CPU tensors always take the plain versions.
 """
 
 from __future__ import annotations
@@ -18,13 +24,15 @@ import numpy as np
 import torch
 
 from ..ops.doy_quantile import doy_quantile
+from ..parallel.mesh import (CellMesh, cell_mesh, cell_sharding, check_mesh,
+                             replicated)
 from .clim import clim_kernel, finish_clim
 from .features_scan import count_events, detect_kernel
 
-# Cells per block. A fixed 4,096: the size the TPU benchmark times and
-# the production block width. At T = 14,610 days a float32 block is
-# ~240 MB, and the largest temporaries (the plain clim pool, ~2.6 GB) fit
-# an 80 GB card many times over.
+# Cells per block on each device. A fixed 4,096: the size the TPU
+# benchmark times and the production block width. At T = 14,610 days a
+# float32 block is ~240 MB, and the largest temporaries (the plain clim
+# pool, ~2.6 GB) fit an 80 GB card many times over.
 DEFAULT_BLOCK = 4096
 
 
@@ -39,11 +47,30 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _no_mesh(mesh, use_mesh):
-    if mesh is not None or use_mesh:
-        raise NotImplementedError(
-            "xmhw_tpu_torch runs on one device: mesh/use_mesh must be "
-            "None/False")
+def mesh_device(mesh, device) -> torch.device:
+    """The device of a run's work outside the cell blocks: the first
+    entry of an explicit ``mesh`` (``device`` is then not read), else
+    :func:`resolve_device` of ``device``. Raises TypeError for a ``mesh``
+    that is neither None nor a cell mesh."""
+    if check_mesh(mesh) is not None:
+        return mesh[0]
+    return resolve_device(device)
+
+
+def resolve_mesh(mesh, use_mesh, device) -> CellMesh:
+    """The devices a run splits its cell blocks over. An explicit ``mesh``
+    is used as given (``device`` is then not read). Otherwise, with
+    ``use_mesh``, every visible GPU when ``device`` is the un-indexed
+    ``"cuda"`` and more than one is visible (the JAX package's rule,
+    ``xmhw_tpu/core/pipeline.py:49-50``); else the one device
+    ``device`` names (``"cuda:1"`` or ``"cpu"``: one device)."""
+    if check_mesh(mesh) is not None:
+        return mesh
+    dev = resolve_device(device)
+    if (use_mesh and dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() > 1):
+        return cell_mesh()
+    return CellMesh((dev,))
 
 
 def use_kernels_for(dtype, dev, override=None) -> bool:
@@ -54,8 +81,20 @@ def use_kernels_for(dtype, dev, override=None) -> bool:
     return np.dtype(dtype) == np.float32 and dev.type == "cuda"
 
 
-def _block_size(n_cells, block):
-    return max(1, min(block or DEFAULT_BLOCK, n_cells))
+def _block_size(n_cells, block, n_dev=1):
+    """Cells per step: ``block`` over the whole mesh, or DEFAULT_BLOCK on
+    each of its ``n_dev`` entries."""
+    return max(1, min(block or DEFAULT_BLOCK * n_dev, n_cells))
+
+
+def _max_over(vals) -> int:
+    """The maximum over the shards' (C_i,) int tensors, with one host
+    wait: each shard's maximum is taken on its device, the maxima are
+    gathered on the first shard's device and read once."""
+    ms = [v.max() if v.numel() else
+          torch.zeros((), dtype=v.dtype, device=v.device) for v in vals]
+    home = ms[0].device
+    return int(torch.stack([m.to(home) for m in ms]).max())
 
 
 def upload(arr_np, lo, hi, dev, pad_rows=0):
@@ -102,9 +141,10 @@ def _fill_of(v):
     return -1 if np.issubdtype(v.dtype, np.integer) else np.nan
 
 
-def _clim_tables(doy_np, w, ndoy, kernels, dev):
+def _clim_tables(doy_np, w, ndoy, kernels, mesh):
     """Range tables for the kernel, or the gather table for the plain
-    path. Sub-daily data with duplicate (doy, year) centres cannot use
+    path, one copy per device of the mesh: (kernels, rmax, {device:
+    tables}). Sub-daily data with duplicate (doy, year) centres cannot use
     the range form and goes to the gather path (a choice made by the
     data, as in the JAX package)."""
     from .calendar import build_window_index, build_window_ranges
@@ -115,17 +155,18 @@ def _clim_tables(doy_np, w, ndoy, kernels, dev):
         except ValueError:
             kernels = False
         else:
-            return True, dict(
-                starts=torch.from_numpy(starts.reshape(-1)).to(dev),
-                lens=torch.from_numpy(lens.reshape(-1)).to(dev),
-                ny=ny, rmax=rmax)
+            st = replicated(mesh, torch.from_numpy(starts.reshape(-1)))
+            ln = replicated(mesh, torch.from_numpy(lens.reshape(-1)))
+            return True, rmax, {d: dict(starts=st[d], lens=ln[d], ny=ny,
+                                        rmax=rmax) for d in st}
     gidx, _ = build_window_index(doy_np, w, ndoy)
-    return False, dict(gidx=torch.from_numpy(gidx).to(dev), rmax=0)
+    g = replicated(mesh, torch.from_numpy(gidx))
+    return False, 0, {d: dict(gidx=t) for d, t in g.items()}
 
 
 def _clim_block(x, tables, kernels, ndoy, pctile, smooth, smooth_w,
                 patch_feb29):
-    """Climatology of one block: kernels take the rmax-padded series."""
+    """Climatology of one shard: kernels take the rmax-padded series."""
     if kernels:
         th, se = doy_quantile(x, tables["starts"], tables["lens"], ndoy,
                               tables["ny"], tables["rmax"], pctile)
@@ -135,27 +176,29 @@ def _clim_block(x, tables, kernels, ndoy, pctile, smooth, smooth_w,
 
 
 def run_clim(ts_np, doy_np, w, ndoy, pctile, smooth, smooth_w, patch_feb29,
-             block=None, mesh=None, use_kernels=None, use_mesh=False,
+             block=None, mesh=None, use_kernels=None, use_mesh=True,
              device="cuda"):
     """Climatology for all cells: (T, C) -> (thresh, seas) as (ndoy, C)
-    numpy arrays (reference: xmhw/xmhw.py:250-307)."""
-    _no_mesh(mesh, use_mesh)
-    dev = resolve_device(device)
+    numpy arrays (reference: xmhw/xmhw.py:250-307). ``mesh``/``use_mesh``
+    as in :func:`resolve_mesh`; ``block``: cells per step over the whole
+    mesh (default 4,096 per device)."""
+    mesh = resolve_mesh(mesh, use_mesh, device)
     T, C = ts_np.shape
-    kernels, tables = _clim_tables(
-        doy_np, w, ndoy, use_kernels_for(ts_np.dtype, dev, use_kernels),
-        dev)
+    kernels, rmax, tables = _clim_tables(
+        doy_np, w, ndoy, use_kernels_for(ts_np.dtype, mesh[0], use_kernels),
+        mesh)
     out_t = np.empty((ndoy, C), ts_np.dtype)
     out_s = np.empty((ndoy, C), ts_np.dtype)
-    B = _block_size(C, block)
+    B = _block_size(C, block, len(mesh))
     for lo in range(0, C, B):
-        hi = min(lo + B, C)
-        x = upload(ts_np, lo, hi, dev, pad_rows=tables["rmax"])
-        th, se = _clim_block(x, tables, kernels, ndoy, pctile, smooth,
-                             smooth_w, patch_feb29)
-        got = fetch_rows({"th": th, "se": se})
-        out_t[:, lo:hi] = got["th"]
-        out_s[:, lo:hi] = got["se"]
+        shards = cell_sharding(mesh, lo, min(lo + B, C))
+        outs = [_clim_block(upload(ts_np, a, b, d, pad_rows=rmax),
+                            tables[d], kernels, ndoy, pctile, smooth,
+                            smooth_w, patch_feb29) for d, a, b in shards]
+        for (_, a, b), (th, se) in zip(shards, outs):
+            got = fetch_rows({"th": th, "se": se})
+            out_t[:, a:b] = got["th"]
+            out_s[:, a:b] = got["se"]
     return out_t, out_s
 
 
@@ -182,15 +225,29 @@ class _Tables:
             self.arrays[k][:v.shape[0], lo:hi] = v
 
 
-def _detect_retry(x, th, se, doy_pos, K, cap, intermediate, det_kw):
-    """detect_kernel with the overflow retry: the raw per-cell counts
-    can exceed K; rerun with a larger K unless the cap forbids it."""
+def _count_k(ins, min_duration, join_gaps, max_gap, day0_fillna_quirk,
+             kernels, floor=1):
+    """The counting pass on every shard of a block: the largest number of
+    events in a cell of the block (at least ``floor``). ``ins``: (ts, th,
+    se, doy_pos) per shard."""
+    ns = [count_events(ts, th, pos, min_duration, join_gaps, max_gap,
+                       day0_fillna_quirk, kernels)
+          for ts, th, _, pos in ins]
+    return max(_max_over(ns), floor)
+
+
+def _detect_retry(ins, K, cap, intermediate, det_kw):
+    """detect_kernel on every shard of a block with the overflow retry:
+    the raw per-cell counts can exceed K; every shard reruns with a larger
+    K (one K per block) unless the cap forbids it. ``ins``: (ts, th, se,
+    doy_pos) per shard. Returns ([(table, n_events, inter)] per shard,
+    K)."""
     while True:
-        tbl, nev, inter = detect_kernel(x, th, se, doy_pos, K,
-                                        intermediate=intermediate, **det_kw)
-        raw_max = int(nev.max()) if nev.numel() else 0
+        outs = [detect_kernel(*i, K, intermediate=intermediate, **det_kw)
+                for i in ins]
+        raw_max = _max_over([nev for _, nev, _ in outs])
         if raw_max <= K or cap(_round_k(raw_max)) == K:
-            return tbl, nev, inter, K
+            return outs, K
         K = cap(_round_k(raw_max))
 
 
@@ -206,7 +263,7 @@ def _warn_dropped(dropped, k_cap):
 def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
                max_gap, intermediate=False, block=None, mesh=None,
                k_cap=None, day0_fillna_quirk=False, use_kernels=None,
-               k_min=None, first_k=None, use_mesh=False, device="cuda"):
+               k_min=None, first_k=None, use_mesh=True, device="cuda"):
     """Detection for all cells: returns (tables dict of (K, C) numpy,
     n_events (C,), inter dict of (T, C) numpy).
 
@@ -215,11 +272,12 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     the first block (or ``first_k``); later blocks run optimistically and
     retry with a larger K when the raw counts overflow. ``k_cap`` is an
     exact memory contract: events beyond it are dropped with a warning.
+    ``mesh``/``use_mesh`` as in :func:`resolve_mesh`; ``block``: cells
+    per step over the whole mesh (default 4,096 per device).
     """
-    _no_mesh(mesh, use_mesh)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, use_mesh, device)
     T, C = ts_np.shape
-    kernels = use_kernels_for(ts_np.dtype, dev, use_kernels)
+    kernels = use_kernels_for(ts_np.dtype, mesh[0], use_kernels)
 
     def cap(k):
         return min(k, int(k_cap)) if k_cap is not None else k
@@ -232,30 +290,32 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     K = cap(_round_k(int(first_k))) if first_k else None
     tables = _Tables(C)
     inter_out = {}
-    doy_pos = torch.from_numpy(np.asarray(doy_pos_np, np.int32)).to(dev)
-    B = _block_size(C, block)
+    doy_pos = replicated(mesh, torch.from_numpy(
+        np.asarray(doy_pos_np, np.int32)))
+    B = _block_size(C, block, len(mesh))
     for lo in range(0, C, B):
-        hi = min(lo + B, C)
-        ts, th, se = (upload(a, lo, hi, dev) for a in (ts_np, th_np, se_np))
+        shards = cell_sharding(mesh, lo, min(lo + B, C))
+        ins = [(*(upload(x, a, b, d) for x in (ts_np, th_np, se_np)),
+                doy_pos[d]) for d, a, b in shards]
         if K is None:
-            n = count_events(ts, th, doy_pos, min_duration, join_gaps,
-                             max_gap, day0_fillna_quirk, kernels)
-            K = cap(_round_k(max(int(n.max()), int(k_min or 1))))
-        tbl, nev, inter, K = _detect_retry(ts, th, se, doy_pos, K, cap,
-                                           intermediate, det_kw)
-        parts = {("nev", "nev"): nev}
-        parts.update({("tbl", k): v for k, v in tbl.items()})
-        parts.update({("inter", k): v for k, v in inter.items()})
-        fetched = fetch_rows(parts)
-        nev = fetched[("nev", "nev")]
-        dropped += int(np.maximum(nev - K, 0).sum())
-        n_events[lo:hi] = np.minimum(nev, K)
-        tables.put({k: fetched[("tbl", k)] for k in tbl}, lo, hi, K)
-        for k in inter:
-            v = fetched[("inter", k)]
-            if k not in inter_out:
-                inter_out[k] = np.empty((T, C), v.dtype)
-            inter_out[k][:, lo:hi] = v
+            K = cap(_round_k(_count_k(
+                ins, min_duration, join_gaps, max_gap, day0_fillna_quirk,
+                kernels, int(k_min or 1))))
+        outs, K = _detect_retry(ins, K, cap, intermediate, det_kw)
+        for (_, a, b), (tbl, nev, inter) in zip(shards, outs):
+            parts = {("nev", "nev"): nev}
+            parts.update({("tbl", k): v for k, v in tbl.items()})
+            parts.update({("inter", k): v for k, v in inter.items()})
+            fetched = fetch_rows(parts)
+            nev = fetched[("nev", "nev")]
+            dropped += int(np.maximum(nev - K, 0).sum())
+            n_events[a:b] = np.minimum(nev, K)
+            tables.put({k: fetched[("tbl", k)] for k in tbl}, a, b, K)
+            for k in inter:
+                v = fetched[("inter", k)]
+                if k not in inter_out:
+                    inter_out[k] = np.empty((T, C), v.dtype)
+                inter_out[k][:, a:b] = v
     _warn_dropped(dropped, k_cap)
     return tables.arrays, n_events, inter_out
 
@@ -360,19 +420,20 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
     adds the ``nan_days`` row). ``rank_names``: table variables to rank.
     ``det_mask_np``: (C,) bool, cells where it is False are excluded from
     detection (NaN thresholds and seasonal means, so no events and NaN
-    categories, while their day stats still compute).
+    categories, while their day stats still compute). ``mesh``: only an
+    explicit cell mesh splits the blocks, as in the JAX package (no
+    ``use_mesh``); ``block``: cells per step over the whole mesh.
 
     Returns (th, se, tables, n_events, extras) where extras holds numpy
     "block"/"day"/"rank" dicts for the enabled stages.
     """
-    _no_mesh(mesh, False)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, False, device)
     T, C = ts_np.shape
     if ts_clim_np is None:
         ts_clim_np, doy_clim_np = ts_np, doy_np
     same_clim = ts_clim_np is ts_np
-    kernels = use_kernels_for(ts_np.dtype, dev, use_kernels)
-    kclim, tables = _clim_tables(doy_clim_np, w, ndoy, kernels, dev)
+    kernels = use_kernels_for(ts_np.dtype, mesh[0], use_kernels)
+    kclim, rmax, tables = _clim_tables(doy_clim_np, w, ndoy, kernels, mesh)
 
     def cap(k):
         return min(k, int(k_cap)) if k_cap is not None else k
@@ -380,9 +441,11 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
     det_kw = dict(min_duration=min_duration, join_gaps=join_gaps,
                   max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
                   use_kernels=kernels)
-    doy_pos = torch.from_numpy(np.asarray(doy_pos_np, np.int32)).to(dev)
-    ybod = (torch.from_numpy(np.asarray(ybod_np, np.int32)).to(dev)
-            if nbins else None)
+    doy_pos = replicated(mesh, torch.from_numpy(
+        np.asarray(doy_pos_np, np.int32)))
+    ybod = (replicated(mesh, torch.from_numpy(np.asarray(ybod_np,
+                                                         np.int32)))
+            if nbins else dict.fromkeys(mesh))
     out_t = np.empty((ndoy, C), ts_np.dtype)
     out_s = np.empty((ndoy, C), ts_np.dtype)
     n_events = np.zeros(C, np.int32)
@@ -390,52 +453,59 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
     extras = _Extras(C)
     dropped = 0
     K = cap(_round_k(int(k_min))) if k_min else None
-    B = _block_size(C, block)
+    B = _block_size(C, block, len(mesh))
     nan = float("nan")
-    for lo in range(0, C, B):
-        hi = min(lo + B, C)
+
+    def shard_in(d, a, b):
+        """One shard's series on its device and its climatology: (x, th,
+        se, doy_pos) for detection, and the day series."""
         # the main series carries the clim kernel's NaN tail rows when it
         # also feeds the climatology, so one upload serves both stages
-        x_pad = upload(ts_np, lo, hi, dev,
-                       pad_rows=tables["rmax"] if same_clim else 0)
-        xc = x_pad if same_clim else upload(ts_clim_np, lo, hi, dev,
-                                            pad_rows=tables["rmax"])
-        x_day = (upload(ts_day_np, lo, hi, dev) if ts_day_np is not None
+        x_pad = upload(ts_np, a, b, d, pad_rows=rmax if same_clim else 0)
+        xc = x_pad if same_clim else upload(ts_clim_np, a, b, d,
+                                            pad_rows=rmax)
+        x_day = (upload(ts_day_np, a, b, d) if ts_day_np is not None
                  else x_pad[:T])
         if cold_spells:
             x_pad = -x_pad
             xc = x_pad if same_clim else -xc
-        th, se = _clim_block(xc, tables, kclim, ndoy, pctile, smooth,
+        th, se = _clim_block(xc, tables[d], kclim, ndoy, pctile, smooth,
                              smooth_w, patch_feb29)
         if det_mask_np is not None:
             m = torch.from_numpy(np.ascontiguousarray(
-                det_mask_np[lo:hi])).to(dev)
+                det_mask_np[a:b])).to(d)
             th = torch.where(m[None, :], th, nan)
             se = torch.where(m[None, :], se, nan)
-        x = x_pad[:T]
+        return (x_pad[:T], th, se, doy_pos[d]), x_day
+
+    for lo in range(0, C, B):
+        shards = cell_sharding(mesh, lo, min(lo + B, C))
+        ins, days = zip(*(shard_in(*s) for s in shards))
         if K is None:
-            n = count_events(x, th, doy_pos, min_duration, join_gaps,
-                             max_gap, day0_fillna_quirk, kernels)
-            K = cap(_round_k(int(n.max())))
-        tbl, nev, _, K = _detect_retry(x, th, se, doy_pos, K, cap, False,
-                                       det_kw)
-        st = (fused_stats(tbl, x_day, th, se, doy_pos, ybod, nbins,
-                          day_edges, count_nans, tuple(rank_names),
-                          cold_spells)
-              if nbins or rank_names else {})
-        parts = {("clim", "th"): th, ("clim", "se"): se,
-                 ("nev", "nev"): nev}
-        parts.update({("tbl", k): v for k, v in tbl.items()})
-        for part, d in st.items():
-            parts.update({(part, k): v for k, v in d.items()})
-        fetched = fetch_rows(parts)
-        nev = fetched[("nev", "nev")]
-        dropped += int(np.maximum(nev - K, 0).sum())
-        n_events[lo:hi] = np.minimum(nev, K)
-        out_t[:, lo:hi] = fetched[("clim", "th")]
-        out_s[:, lo:hi] = fetched[("clim", "se")]
-        ev_tables.put({k: fetched[("tbl", k)] for k in tbl}, lo, hi, K)
-        extras.put({part: {k: fetched[(part, k)] for k in d}
-                    for part, d in st.items()}, lo, hi)
+            K = cap(_round_k(_count_k(ins, min_duration, join_gaps, max_gap,
+                                      day0_fillna_quirk, kernels)))
+        outs, K = _detect_retry(ins, K, cap, False, det_kw)
+        sts = [fused_stats(tbl, x_day, th, se, pos, ybod[d], nbins,
+                           day_edges, count_nans, tuple(rank_names),
+                           cold_spells)
+               if nbins or rank_names else {}
+               for (tbl, _, _), x_day, (_, th, se, pos), (d, _, _)
+               in zip(outs, days, ins, shards)]
+        for (_, a, b), (_, th, se, _), (tbl, nev, _), st in zip(
+                shards, ins, outs, sts):
+            parts = {("clim", "th"): th, ("clim", "se"): se,
+                     ("nev", "nev"): nev}
+            parts.update({("tbl", k): v for k, v in tbl.items()})
+            for part, dd in st.items():
+                parts.update({(part, k): v for k, v in dd.items()})
+            fetched = fetch_rows(parts)
+            nev = fetched[("nev", "nev")]
+            dropped += int(np.maximum(nev - K, 0).sum())
+            n_events[a:b] = np.minimum(nev, K)
+            out_t[:, a:b] = fetched[("clim", "th")]
+            out_s[:, a:b] = fetched[("clim", "se")]
+            ev_tables.put({k: fetched[("tbl", k)] for k in tbl}, a, b, K)
+            extras.put({part: {k: fetched[(part, k)] for k in dd}
+                        for part, dd in st.items()}, a, b)
     _warn_dropped(dropped, k_cap)
     return out_t, out_s, ev_tables.arrays, n_events, extras.parts

@@ -12,14 +12,18 @@ materialise, so two reductions are written differently here:
 * :func:`rank_events_desc` ranks with a stable sort along the event axis,
   instead of a ``(K, K, C)`` compare-count.
 
-Every reduction is a plain tensor reduction (no ``scatter_add_`` or
-``index_add_``), so its order of float sums is fixed from run to run.
+No reduction is a ``scatter_add_`` or ``index_add_``, and float sums
+are running sums (:func:`core.clim.ordered_sum`), so each output's order
+of float adds is fixed from run to run and from one block width to
+another.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .clim import ordered_sum
 
 # output name -> (source index, reduction); sources order fixed below
 EVENT_AGGS = [
@@ -95,7 +99,7 @@ def binned_event_stats(values, bin_idx, valid, nbins):
                 rows[name].append(torch.where(
                     cnt > 0, _masked_extreme(v, m, True), nan))
                 continue
-            s = torch.where(m, v, 0).sum(dim=0)
+            s = ordered_sum(torch.where(m, v, 0), 0)
             if how == "sum":
                 # pandas sum of an empty group is 0.0 (reference total_icum)
                 rows[name].append(s)
@@ -129,7 +133,7 @@ def binned_day_stats(ts, cats, edges, with_cats=False, count_nans=False):
         seg = ts[edges[i]:edges[i + 1]]
         fin = torch.isfinite(seg)
         cnt = fin.sum(dim=0).to(dt)
-        s = torch.where(fin, seg, 0).sum(dim=0)
+        s = ordered_sum(torch.where(fin, seg, 0), 0)
         nz = cnt > 0
         rows["ts_mean"].append(torch.where(nz, s / torch.clamp(cnt, min=1),
                                            nan))

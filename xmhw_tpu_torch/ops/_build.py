@@ -9,7 +9,10 @@ included, which keeps a cold build to seconds.
 
 Every ``extern "C"`` launcher returns ``cudaGetLastError()`` after its
 launch; :func:`check` raises on a non-zero code, so a launch the card
-refuses is reported where it happened.
+refuses is reported where it happened. A launcher (and its
+``cudaFuncSetAttribute``) acts on the current CUDA device, so each wrapper
+calls it under ``torch.cuda.device`` of its input tensor: a tensor on
+``cuda:1`` runs there, whichever device is current.
 """
 
 from __future__ import annotations
@@ -103,6 +106,8 @@ def library() -> ctypes.CDLL:
     lib.xmhw_rle_config.restype = None
     lib.xmhw_rle_scratch.argtypes = [_I, _I]
     lib.xmhw_rle_scratch.restype = ctypes.c_longlong
+    lib.xmhw_run_bound_config.argtypes = [_I] + [ctypes.POINTER(_I)] * 4
+    lib.xmhw_run_bound_config.restype = None
     return lib
 
 

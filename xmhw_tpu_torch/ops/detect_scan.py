@@ -181,9 +181,10 @@ def event_stats(ts, th, se, doy_pos, day, is_start, K):
     F = torch.empty((len(F_CHANNELS), K, C), dtype=torch.float32,
                     device=dev)
     Ic = torch.empty((len(I_CHANNELS), K, C), dtype=torch.int32, device=dev)
-    err = lib.xmhw_event_scan(
-        *(a.data_ptr() for a in args), T, C, K, recs.data_ptr(),
-        F.data_ptr(), Ic.data_ptr(), _build.stream_of(ts))
+    with torch.cuda.device(ts.device):
+        err = lib.xmhw_event_scan(
+            *(a.data_ptr() for a in args), T, C, K, recs.data_ptr(),
+            F.data_ptr(), Ic.data_ptr(), _build.stream_of(ts))
     _build.check(err, "event_scan")
     event_stats.launches += 1
     return F, Ic

@@ -73,10 +73,11 @@ def doy_quantile(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
     se = torch.empty_like(th)
     pct_int = int(pctile) if float(pctile).is_integer() else -1
     q = float(np.float32(pctile / 100.0))
-    err = _build.library().xmhw_doy_quantile(
-        ts_padded.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-        th.data_ptr(), se.data_ptr(), C, ndoy, ny, rmax, pct_int, q,
-        _build.stream_of(ts_padded))
+    with torch.cuda.device(ts_padded.device):
+        err = _build.library().xmhw_doy_quantile(
+            ts_padded.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+            th.data_ptr(), se.data_ptr(), C, ndoy, ny, rmax, pct_int, q,
+            _build.stream_of(ts_padded))
     _build.check(err, "doy_quantile")
     doy_quantile.launches += 1
     return th, se

@@ -74,11 +74,13 @@ def _launch(bthresh, out, min_duration, join_gaps, max_gap,
     ptr = [out[k].data_ptr() if k in out else None
            for k in ("event_day", "is_start", "slot", "n_events",
                      *_INTERMEDIATE)]
-    err = lib.xmhw_rle(
-        bthresh.data_ptr(), T, C, int(min_duration), int(bool(join_gaps)),
-        int(max_gap), int(bool(day0_fillna_quirk)), *ptr,
-        None if scratch is None else scratch.data_ptr(),
-        _build.stream_of(bthresh))
+    with torch.cuda.device(bthresh.device):
+        err = lib.xmhw_rle(
+            bthresh.data_ptr(), T, C, int(min_duration),
+            int(bool(join_gaps)), int(max_gap),
+            int(bool(day0_fillna_quirk)), *ptr,
+            None if scratch is None else scratch.data_ptr(),
+            _build.stream_of(bthresh))
     _build.check(err, "rle")
     mode = ("count" if "event_day" not in out else
             "days" if "slot" not in out else

@@ -10,9 +10,14 @@ run_bound``. No path of either package calls it: the JAX package keeps
 its cummax/cummin scans as the default and the kernel as a tested
 building block (``xmhw_tpu/ops/pallas/run_bound.py:13-18``), and so does
 the port (``core/events.py``, ``csrc/rle.cu``).
+
+The kernel splits time across the warps of a 32-cell block
+(:func:`launch_config`); ``run_bound.launches`` counts its launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,12 +47,23 @@ def run_bound(mask, forward=True):
                         f"got {mask.dtype} {tuple(mask.shape)}")
     T, C = mask.shape
     out = torch.empty((T, C), dtype=torch.int32, device=mask.device)
-    err = _build.library().xmhw_run_bound(
-        mask.data_ptr(), T, C, int(bool(forward)), out.data_ptr(),
-        _build.stream_of(mask))
+    with torch.cuda.device(mask.device):
+        err = _build.library().xmhw_run_bound(
+            mask.data_ptr(), T, C, int(bool(forward)), out.data_ptr(),
+            _build.stream_of(mask))
     _build.check(err, "run_bound")
     run_bound.launches += 1
     return out
 
 
 run_bound.launches = 0
+
+
+def launch_config(T):
+    """The kernel's launch shape for T days: ``warps`` (time segments) and
+    ``threads`` per block, ``days`` per segment and ``smem_bytes`` of
+    shared memory per block. Builds the kernel library on first use."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.library().xmhw_run_bound_config(T, *map(ctypes.byref, vals))
+    return dict(zip(("warps", "threads", "days", "smem_bytes"),
+                    (v.value for v in vals)))

@@ -18,8 +18,11 @@ by O(time x stripe):
 The host code (reader, writers, resume watermark, read-ahead and
 write-behind threads) is the JAX package's, unchanged. What touches the
 device takes ``device`` (default ``"cuda"``, as in :func:`threshold`; a
-CUDA device without a GPU raises). ``mesh`` is accepted for signature
-parity and must be None. The device is synchronised once per stripe, by
+CUDA device without a GPU raises). ``mesh`` is passed on as the JAX
+package passes it: to run_clim/run_detect with their default ``use_mesh``
+(on the un-indexed ``"cuda"`` with more than one GPU visible, every GPU),
+and to run_fused explicitly; with a mesh, ``device`` is not read. The
+devices are synchronised once per stage of a stripe, the last time by
 the fetch of the stripe's results.
 
 Outputs are normal NetCDF4 files that xmhw_tpu_torch.open_dataset (or
@@ -38,7 +41,8 @@ import torch
 from .annotate import (MHW_VAR_ATTRS, detect_params_attr,
                        threshold_params_attr)
 from .core.calendar import compute_doy, get_calendar
-from .core.pipeline import _no_mesh, resolve_device, run_clim, run_detect
+from .core.pipeline import (mesh_device, resolve_device, run_clim,
+                            run_detect)
 from .exception import XmhwException
 from .xrlite import TimeIndex, encode_cf_time
 from .xrlite.alloc import alloc_empty, alloc_filled, tune_malloc
@@ -578,8 +582,7 @@ def stream_threshold(
     Same semantics as :func:`xmhw_tpu_torch.threshold` (reference:
     xmhw/xmhw.py:38-247); returns the output path.
     """
-    _no_mesh(mesh, False)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     tune_malloc()
     if smoothPercentileWidth % 2 == 0:
         raise XmhwException("smoothPercentileWidth should be odd")
@@ -965,8 +968,7 @@ def stream_detect(
     ``device``: where detection runs (default ``"cuda"``), as in
     :func:`xmhw_tpu_torch.detect`.
     """
-    _no_mesh(mesh, False)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     tune_malloc()
     if maxGap >= minDuration:
         raise XmhwException(
@@ -1648,8 +1650,7 @@ def stream_run(
     ``device``: where the fused pass runs (default ``"cuda"``).
     Returns a dict of the written paths.
     """
-    _no_mesh(mesh, False)
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     tune_malloc()
     if smoothPercentileWidth % 2 == 0:
         raise XmhwException("smoothPercentileWidth should be odd")
