@@ -26,9 +26,15 @@ Phases, one or more lines each:
    tests/test_torch_rle_edges.py, and timed in three (the counting launch,
    the detect launch, today's full=False), each against its own bound. The
    event scan runs again on events that cross every one of its time
-   segments' edges;
+   segments' edges. Its plain version in float64, what the card runs for
+   float64, must give the same bits in three runs and the CPU's bits but
+   for the standard deviations (float64 ``torch.sqrt`` is not always
+   correctly rounded on the CPU), and is timed (``f64_scan``, which also
+   takes other versions of it to time in turns);
 4. reference: threshold() + detect() on a small grid, on the card (float32
-   kernels) against the plain torch code on the CPU;
+   kernels) against the plain torch code on the CPU; then in float64 (the
+   plain versions on the card) twice, which must give the same bits, and
+   whether those bits equal the CPU's;
 5. slice: threshold(climatologyPeriod=[1983, 2012]) then detect() over a
    synthetic 40-year grid of 4,096 ocean cells; every kernel's launch
    counter must advance (the RLE's by one counting and one detect launch),
@@ -46,14 +52,26 @@ Phases, one or more lines each:
    slice twice side by side (8,192 cells: 4,096 a device), one device
    against the mesh, in turns and bit-equal; run_bound on the mesh's
    shards of the slice's exceedance mask (make_cell_array);
-9. stream steps: the device steps only the streamed stages run
+9. procs: tools/torch_multiproc_dryrun.py with two ranks of one
+   torch.distributed group over the slice's size (40 daily years, 4,096
+   cells, K = 128, float32): both on cuda:0 with gloo where one GPU is
+   visible, one GPU a rank with nccl where two or more are. Each rank
+   feeds its own shard of the global mesh (make_cell_array), runs
+   fused_threshold_detect on it (kernels 1-3 once each: its launch
+   counters must advance by one, the RLE's in its detect mode), its
+   outputs must equal the one-process step bit for bit and the plain
+   version's on its shard within the kernel bars; the ranks' all_reduced
+   event total must equal the one-process step's. The backend, the devices and
+   the walls of each rank's step and of the one-process step. The streamed
+   two-process tool needs h5py: where it is missing, one line says so;
+10. stream steps: the device steps only the streamed stages run
    (stream_block_average's float64 event and day statistics of one stripe,
    stream_rank's batched ranks), on the slice's events, on the card
    against the CPU;
-10. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
+11. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
    the standard shapes on the card; every kernel's launch counter must
    advance;
-11. stream: the streamed pipelines file to file, which read and write
+12. stream: the streamed pipelines file to file, which read and write
    NetCDF through h5py. Where h5py is installed: a 160 x 64 grid (10,240
    cells, ~20 % land, 40 daily years, float32, ~600 MB) through stream_run
    (3 stripes) and through the staged chain stream_threshold ->
@@ -64,8 +82,9 @@ Phases, one or more lines each:
    says that the phase did not run and why.
 
 Then a JSON line with one entry per kernel (``launches``: in the slice;
-``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0]), and last
-the line
+``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0];
+``procs_launches``: each rank's in the procs phase; the event scan's
+``plain_f64_ms``: its plain version in float64), and last the line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a visible CUDA device.
 """
@@ -171,15 +190,20 @@ def max_err(a, b, what, atol, rtol=0.0):
     return float(d.max()) if d.numel() else 0.0
 
 
-def same_bits(a, b, what):
-    """Raises unless two float32 tensors are equal bit for bit (-0.0 and
-    +0.0 differ), NaN patterns included."""
-    import torch
+def bits():
+    """tools/torch_multiproc_dryrun.py, whose bit-equality helpers
+    (``same_bits`` and ``differing`` for tensors, ``np_same_bits`` for
+    arrays) this script shares with the tests."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_multiproc_dryrun
 
-    if not torch.equal(torch.isnan(a), torch.isnan(b)):
-        raise AssertionError(f"{what}: NaN patterns differ")
-    if not torch.equal(torch.nan_to_num(a).view(torch.int32),
-                       torch.nan_to_num(b).view(torch.int32)):
+    return torch_multiproc_dryrun
+
+
+def same_bits(a, b, what):
+    """Raises unless two tensors are equal bit for bit (-0.0 and +0.0
+    differ), NaN patterns included."""
+    if not bits().same_bits(a, b):
         raise AssertionError(f"{what}: not bit-equal")
 
 
@@ -350,7 +374,92 @@ def phase_kernels(card):
         nbytes(*args3[:6], Fk, Ik),
         len(detect_scan.F_CHANNELS) * xt.numel())
     scan_edges(card, xt, th, se, pos)
+    f64 = f64_scan(card)["this checkout"]
+    if any(f64["repeats"]):
+        raise AssertionError(f"float64 plain event scan: {f64['repeats']} "
+                             "entries differ from its first run")
+    if set(f64["cpu"]) - {c for c in detect_scan.F_CHANNELS
+                          if c.startswith("std_")}:
+        raise AssertionError(f"float64 plain event scan: channels "
+                             f"{f64['cpu']} differ from the CPU's")
+    rows[-1]["plain_f64_ms"] = f64["ms"]
     return rows
+
+
+def f64_scan_inputs():
+    """(ts, th, se, doy_pos, event_day, is_start, K) of the float64 event
+    scan at the main path's shapes (T = 14,610, 4,096 cells, K = 128),
+    from the plain versions alone: the synthetic field of phase_kernels,
+    its float64 climatology from fused_threshold_detect (which runs the
+    plain versions in float64) and the RLE's plain detect mode."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import compute_doy
+    from xmhw_tpu_torch.core.pipeline import fused_threshold_detect
+    from xmhw_tpu_torch.ops import rle
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    doy, ndoy = compute_doy(TimeIndex(daily(T0, T1)))
+    pos = torch.from_numpy((doy - 1).astype(np.int32)).to(DEV)
+    x = torch.from_numpy(synth(len(doy), CELLS, seed=1)).to(DEV).double()
+    th, se, _, _ = fused_threshold_detect(x, doy, pos, K=K, ndoy=ndoy)
+    f = rle.mhw_filter_plain(x > th[pos.long()], full=False, slot=False)
+    return x, th, se, pos, f["event_day"], f["is_start"], K
+
+
+def f64_scan(card, fns=None, cpu_cells=256):
+    """The plain event scan in float64, what the card runs for float64, at
+    the main path's shapes. ``fns``: labelled ``event_stats_plain``
+    versions (default: this checkout's ops.detect_scan), timed in turns
+    (forward, then backward). For each: how many output entries of two
+    more runs differ from the first run's bits, the channels whose bits
+    differ from this checkout's version on the CPU over ``cpu_cells``
+    cells (each cell's sums do not depend on the others), and the
+    CUDA-event time, the median of its turns' medians. Also float64
+    ``torch.sqrt`` on the card and on the CPU against numpy's correctly
+    rounded one. Returns {label: {"ms", "repeats", "cpu"}}."""
+    import torch
+
+    from xmhw_tpu_torch.ops import detect_scan
+
+    fns = fns or {"this checkout": detect_scan.event_stats_plain}
+    args = f64_scan_inputs()
+    cpu_args = [a[..., :cpu_cells].cpu().contiguous()
+                if torch.is_tensor(a) and a.shape[-1] == CELLS else
+                a.cpu() if torch.is_tensor(a) else a for a in args]
+    F_cpu, I_cpu = detect_scan.event_stats_plain(*cpu_args)
+    same, differing = bits().same_bits, bits().differing
+    out = {}
+    for label, fn in fns.items():
+        F0, I0 = fn(*args)
+        repeats = []
+        for _ in range(2):
+            F, I = fn(*args)
+            repeats.append(differing(F, F0) + differing(I, I0))
+        cpu = [c for i, c in enumerate(detect_scan.F_CHANNELS)
+               if not same(F0[i, :, :cpu_cells].cpu(), F_cpu[i])]
+        if not torch.equal(I0[..., :cpu_cells].cpu(), I_cpu):
+            cpu.append("positions")
+        out[label] = {"repeats": repeats, "cpu": cpu, "turns": []}
+    for turn in range(3):
+        for label in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            out[label]["turns"].append(cuda_ms(lambda: fns[label](*args)))
+    v = torch.from_numpy(np.random.default_rng(0).random(100000) * 10)
+    ref = torch.from_numpy(np.sqrt(v.numpy()))
+    roots = {w: differing(torch.sqrt(v.to(w)).cpu(), ref)
+             for w in (DEV, "cpu")}
+    for label, o in out.items():
+        o["ms"] = statistics.median(o.pop("turns"))
+        log(f"kernels: detect_scan plain, float64 ({label}): "
+            f"{int(args[5].sum())} events, {int(args[4].sum())} event days; "
+            f"entries that differ from its first run in two more runs "
+            f"{o['repeats']}; channels whose bits differ from the CPU over "
+            f"{cpu_cells} cells {o['cpu']}; {o['ms']:.3f} ms (median of 3 "
+            f"medians of {REPS})  [{card}]")
+    log(f"kernels: float64 torch.sqrt of {v.numel()} values against numpy's "
+        f"correctly rounded root: {roots[DEV]} differ on the card, "
+        f"{roots['cpu']} on the CPU")
+    return out
 
 
 def clim_kernel(card, t, ts, args):
@@ -674,6 +783,31 @@ def phase_reference(card):
         f"seas {e2:.3g}, {n} events agree  [{card}]")
     if n == 0:
         raise AssertionError("reference grid found no events")
+    # float64 runs the plain versions on the card: the same bits each run
+    runs = {}
+    for label, dev in (("card", DEV), ("again", DEV), ("cpu", "cpu")):
+        clim = xt.threshold(da, device=dev, dtype=np.float64)
+        runs[label] = [clim, xt.detect(da, clim["thresh"], clim["seas"],
+                                       device=dev, dtype=np.float64,
+                                       events_layout="compact")]
+    for what, a, b in zip(("clim", "events"), runs["card"], runs["again"]):
+        same_data(a, b, f"reference float64 {what}, two runs on the card:")
+    cpu = [bits_differ(a, b) for a, b in zip(runs["card"], runs["cpu"])]
+    log(f"reference: float64 threshold+detect twice on the card: the same "
+        f"bits; card vs CPU bits: clim "
+        f"{'equal' if not cpu[0] else 'differ in ' + str(cpu[0])}, events "
+        f"{'equal' if not cpu[1] else 'differ in ' + str(cpu[1])}  [{card}]")
+
+
+def bits_differ(a, b):
+    """The variables of two Datasets whose data differ bit for bit (NaN
+    and NaT where the other has them; -0.0 apart from +0.0). Raises when
+    they hold other variables."""
+    if sorted(a.keys()) != sorted(b.keys()):
+        raise AssertionError(f"variables {sorted(a.keys())} != "
+                             f"{sorted(b.keys())}")
+    same = bits().np_same_bits
+    return [k for k in a.keys() if not same(a[k].data, b[k].data)]
 
 
 def _t(a):
@@ -934,16 +1068,10 @@ def slice_run(da, **kw):
 
 def same_data(a, b, what):
     """Two Datasets hold the same variables with equal data, bit for bit
-    (NaN and NaT where the other has them)."""
-    if sorted(a.keys()) != sorted(b.keys()):
-        raise AssertionError(f"{what}: variables differ")
-    for k in a.keys():
-        x, y = np.asarray(a[k].data), np.asarray(b[k].data)
-        if x.dtype.kind == "M":
-            x, y = x.astype("i8"), y.astype("i8")
-        if x.shape != y.shape or not np.array_equal(
-                x, y, equal_nan=x.dtype.kind == "f"):
-            raise AssertionError(f"{what} {k}: not bit-equal")
+    (:func:`bits_differ`)."""
+    bad = bits_differ(a, b)
+    if bad:
+        raise AssertionError(f"{what} {bad}: not bit-equal")
 
 
 def same_fused(a, b, what):
@@ -1057,6 +1185,81 @@ def phase_mesh(card, da, clim, mhw, fused):
         f"(make_cell_array): bit-equal to plain, {bounds} launches  "
         f"[{card}]")
     return dict(counts, run_bound=bounds)
+
+
+def phase_procs(card, years=40, cells=CELLS, k=K):
+    """tools/torch_multiproc_dryrun.py with two ranks on the card at the
+    slice's size: each rank's launch counters advance by one a kernel (the
+    RLE's in its detect mode), its shard equals the one-process step bit
+    for bit (checked by the tool), its kernels' outputs agree with the
+    plain version's on its shard at TOL (counts and positions exact), and
+    the all_reduced total equals the one-process step's. Returns each
+    kernel's launches per rank."""
+    import importlib.util
+
+    import torch
+
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, str(root / "tools" / "torch_multiproc_dryrun.py"),
+           "--device", DEV, "--years", str(years), "--cells", str(cells),
+           "--K", str(k), "--timeout", "400"]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=450,
+                       cwd=root)
+    wall = time.perf_counter() - t
+    if r.returncode != 0 or "torch multiproc dryrun: PASS" not in r.stdout:
+        raise AssertionError(f"multi-process dryrun failed (exit "
+                             f"{r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    recs = sorted((json.loads(ln[len("procs "):]) for ln in
+                   r.stdout.splitlines() if ln.startswith("procs {")),
+                  key=lambda x: x["rank"])
+    if [x["rank"] for x in recs] != [0, 1]:
+        raise AssertionError(f"multi-process dryrun: ranks "
+                             f"{[x['rank'] for x in recs]} reported")
+    for x in recs:
+        n = 1 if x["device"].startswith("cuda") else 0
+        if x["launches"] != {"doy_quantile": n, "rle": n, "rle_days": n,
+                             "detect_scan": n}:
+            raise AssertionError(f"rank {x['rank']} launches "
+                                 f"{x['launches']}: want {n} of each")
+        if x["events"] != recs[0]["events"]:
+            raise AssertionError("the ranks reduced other event totals")
+        e = x["plain"]
+        if not (e["exact_differ"] == 0 and e["thresh"] <= TOL["thresh"]
+                and e["seas"] <= TOL["seas"] and e["events"] <= TOL["scan"]):
+            raise AssertionError(f"rank {x['rank']}: kernels against the "
+                                 f"plain version {e}, bars {TOL}")
+        log(f"procs: rank {x['rank']} of 2 ({x['backend']}) on "
+            f"{x['device']}, mesh {x['mesh']} of ranks {x['ranks']}: fed "
+            f"cells {x['fed']}, {x['T']} days, K = {x['K']}; launches "
+            f"{x['launches']}; kernels against plain on its shard: thresh "
+            f"{e['thresh']:.3g}, seas {e['seas']:.3g}, event floats "
+            f"{e['events']:.3g} (|diff| / (1 + |plain|)), "
+            f"{e['exact_differ']} exact entries differ; its step "
+            f"{x['step_s']:.4f} s, the "
+            f"one-process step over {x['cells']} cells "
+            f"{x['one_process_step_s']:.4f} s; bit-equal; "
+            f"{x['events']} events across the mesh  [{card}]")
+    log(f"procs: two processes, {torch.cuda.device_count()} CUDA device(s) "
+        f"visible, in {wall:.1f} s (start-up, data and checks included)  "
+        f"[{card}]")
+    if importlib.util.find_spec("h5py") is None:
+        log("procs: tools/torch_multiproc_stream.py did not run: no h5py on "
+            "this machine, and the streamed functions read and write NetCDF "
+            "through it; tests/test_torch_multiproc.py runs it on the CPU")
+    else:
+        r = subprocess.run(
+            [sys.executable, str(root / "tools" / "torch_multiproc_stream.py"),
+             "--device", DEV], capture_output=True, text=True, timeout=600,
+            cwd=root)
+        if r.returncode != 0:
+            raise AssertionError(f"multi-process stream failed:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        ok = [ln for ln in r.stdout.splitlines() if ln.startswith("rank 0")]
+        log(f"procs: {ok[-1]}  [{card}]")
+    return {name: [x["launches"][name] for x in recs]
+            for name in ("doy_quantile", "rle", "detect_scan")}
 
 
 def fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax):
@@ -1342,6 +1545,7 @@ def main():
     stats = phase_stats(card, da, clim, mhw)
     fused = phase_fused(card, da, clim, mhw, stats)
     mesh_launches = phase_mesh(card, da, clim, mhw, fused)
+    procs_launches = phase_procs(card)
     phase_stream_steps(card, da, clim, mhw)
     phase_cli(card)
     phase_stream(card)
@@ -1349,6 +1553,7 @@ def main():
         if r["name"] in launches:  # run_bound: counted in phase_kernels
             r["launches"] = launches[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]
+        r["procs_launches"] = procs_launches.get(r["name"], [0, 0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,14 @@ event scan's counts and positions exact and its floats within rtol =
 atol = 2e-3. block_average/mhw_rank on the card against the host numpy
 path: counts and ranks exact, day statistics rtol 1e-9 (both float64),
 event statistics rtol = atol = 1e-5 (float32 tables on the card, float64
-sums on the host).
+sums on the host). float64 threshold + detect (the plain versions on the
+card): the same bits run after run and over a mesh, and the CPU's bits
+but for the four variances (one ulp: ``torch.sqrt``).
 """
 
 import shutil
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +39,10 @@ import test_torch_doy_edges as doy_edges  # noqa: E402
 import test_torch_rle_edges as rle_edges  # noqa: E402
 import test_torch_run_bound_edges as rb_edges  # noqa: E402
 import test_torch_scan_edges as edges  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+from torch_multiproc_dryrun import (START_YEAR, field,  # noqa: E402
+                                    np_same_bits, same_bits)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,12 +176,6 @@ def doy_case(dev, case):
     kinds = doy_edges.KINDS if case == "edges" else ("sst",)
     ts = doy_edges.edge_series(len(t), 300, seed=years, kinds=kinds)
     return padded_args(dev, ts, starts, lens, ndoy, ny, rmax)
-
-
-def same_bits(a, b):
-    return (torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
-        torch.nan_to_num(a).view(torch.int32),
-        torch.nan_to_num(b).view(torch.int32)))
 
 
 def within_one_ulp(a, b):
@@ -469,7 +471,7 @@ def test_stats_on_card_match_host(dev):
             stats_close(xt.block_average(ev, device="cuda", **kw),
                         xt.block_average(ev, device=False, **kw))
         stats_close(xt.block_average(ev, period=[2001, 2005], device=True),
-                    xt.block_average(ev, period=[2001, 2005]))
+                    xt.block_average(ev, period=[2001, 2005], device=False))
         rk, rp = xt.mhw_rank(ev, device="cuda")
         hk, hp = xt.mhw_rank(ev, device=False)
         for k in hk.keys():
@@ -523,3 +525,142 @@ def test_timed_synchronises_the_card(dev, monkeypatch):
         t["sync"] = [x @ x, torch.ones(2)]
     assert calls == [x.device]
     assert t["seconds"] > 0.0
+
+
+def test_stats_default_device_is_the_card(dev):
+    """block_average()/mhw_rank() without ``device`` equal device="cuda"
+    bit for bit."""
+    _, mhw, _, inter = stats_events(dev)
+    a = xt.block_average(mhw, dstime=inter)
+    b = xt.block_average(mhw, dstime=inter, device="cuda")
+    for k in b.keys():
+        assert np_same_bits(a[k].data, b[k].data), k
+    for x, y in zip(xt.mhw_rank(mhw), xt.mhw_rank(mhw, device="cuda")):
+        for k in y.keys():
+            assert np_same_bits(x[k].data, y[k].data), k
+
+
+def f64_grid():
+    """10 daily years on a 6 x 7 grid, float64, one land cell."""
+    t = np.arange("2001-01-01", "2011-01-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    rng = np.random.default_rng(8)
+    day = np.arange(len(t))[:, None, None]
+    ts = (15 + 3 * np.sin(2 * np.pi * day / 365.25)
+          + np.cumsum(rng.normal(0, 0.3, (len(t), 6, 7)), 0) * 0.2)
+    ts[:, 0, 0] = np.nan
+    return DataArray(ts, ("time", "lat", "lon"),
+                     {"time": Coord(("time",), t),
+                      "lat": Coord(("lat",), np.arange(6.0)),
+                      "lon": Coord(("lon",), np.arange(7.0))})
+
+
+def f64_run(da, **kw):
+    clim = xt.threshold(da, dtype=np.float64, **kw)
+    mhw = xt.detect(da, clim["thresh"], clim["seas"], dtype=np.float64,
+                    events_layout="compact", **kw)
+    return clim, mhw
+
+
+def assert_ds_bits(a, b):
+    assert sorted(a.keys()) == sorted(b.keys())
+    for k in a.keys():
+        assert np_same_bits(a[k].data, b[k].data), k
+
+
+def test_float64_detect_repeats_its_bits(dev):
+    """float64 runs the plain event scan on the card: run after run, the
+    same bits (its sums add each event's days in order, no atomics)."""
+    da = f64_grid()
+    first = f64_run(da, device="cuda")
+    assert np.isfinite(np.asarray(first[1]["duration"].data)).sum() > 20
+    for _ in range(2):
+        for a, b in zip(first, f64_run(da, device="cuda")):
+            assert_ds_bits(a, b)
+    ts, th, se, pos = (a.double() if a.is_floating_point() else a
+                       for a in scan_case(dev, "walk"))
+    f = rle.mhw_filter_plain(ts > th[pos.long()])
+    args = (ts, th, se, pos, f["event_day"], f["is_start"], 128)
+    F0, I0 = detect_scan.event_stats_plain(*args)
+    for _ in range(3):
+        F, I = detect_scan.event_stats_plain(*args)
+        assert same_bits(F, F0) and torch.equal(I, I0)
+
+
+def test_float64_mesh_on_one_card_matches_single(dev):
+    """float64 threshold() + detect() over [cuda:0, cuda:0] equal the
+    single-device run bit for bit."""
+    from xmhw_tpu_torch.parallel import cell_mesh
+
+    da = f64_grid()
+    one = f64_run(da, device="cuda")
+    two = f64_run(da, mesh=cell_mesh(["cuda:0", "cuda:0"]))
+    for a, b in zip(one, two):
+        assert_ds_bits(a, b)
+
+
+def test_float64_card_bits_against_the_cpu(dev):
+    """float64 on the card and on the CPU: the climatology and every
+    event-table variable equal bit for bit, but the four variances
+    (intensity_var*, severity_var), whose ``torch.sqrt`` rounds
+    correctly on the card and not always on the CPU (~0.9 % of float64
+    inputs one ulp apart): those within one ulp."""
+    da = f64_grid()
+    for a, b in zip(f64_run(da, device="cuda"), f64_run(da, device="cpu")):
+        assert sorted(a.keys()) == sorted(b.keys())
+        for k in a.keys():
+            if "_var" not in k:
+                assert np_same_bits(a[k].data, b[k].data), k
+                continue
+            x, y = np.asarray(a[k].data), np.asarray(b[k].data)
+            np.testing.assert_allclose(x, y, rtol=2.0 ** -52, atol=0,
+                                       equal_nan=True, err_msg=k)
+
+
+def test_fused_threshold_detect_kernels_match_plain(dev):
+    """fused_threshold_detect at the main path's shape (T = 14,610 x
+    4,096 cells, K = 128, float32): kernels 1-3 once each against the
+    plain versions, at PERF.md's bars (thresh 1e-6, seas 1e-5, counts and
+    positions exact, event floats rtol = atol = 2e-3)."""
+    t = np.arange(f"{START_YEAR}-01-01", f"{START_YEAR + 40}-01-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    doy, ndoy = compute_doy(TimeIndex(t))
+    assert len(t) == 14610
+    pos = (doy - 1).astype(np.int32)
+    x = torch.from_numpy(field(len(t), 4096, seed=2)).to(dev)
+    rle.reset_launches()
+    before = launch_counts()
+    th, se, tab, n = pipeline.fused_threshold_detect(x, doy, pos, K=128,
+                                                     ndoy=ndoy)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, launch_counts())] == [1, 1, 1]
+    assert rle.mhw_filter.by_mode["days"] == 1
+    thp, sep, tabp, n_p = pipeline.fused_threshold_detect(
+        x, doy, pos, K=128, ndoy=ndoy, use_kernels=False)
+    assert int(n.sum()) > 0
+    assert torch.equal(n, n_p)
+    floats_close(th, thp, "thresh", tol=1e-6)
+    floats_close(se, sep, "seas", tol=1e-5)
+    exact = ("event", "index_", "time_", "duration", "category")
+    for k, v in tabp.items():
+        if k.startswith(exact):
+            assert torch.equal(torch.nan_to_num(tab[k].double(), nan=-9.0),
+                               torch.nan_to_num(v.double(), nan=-9.0)), k
+        else:
+            floats_close(tab[k], v, k)
+
+
+def test_dryrun_two_ranks_on_one_card(dev):
+    """tools/torch_multiproc_dryrun.py: two ranks of a gloo group on
+    cuda:0 (nccl with one GPU a rank where two are visible), each feeding
+    its own shard, bit-equal to the unsharded step."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent.parent
+    r = subprocess.run(
+        [sys.executable, str(root / "tools" / "torch_multiproc_dryrun.py"),
+         "--device", "cuda", "--timeout", "200"], capture_output=True,
+        text=True, timeout=260, cwd=root)
+    assert r.returncode == 0, r.stdout + r.stderr[-4000:]
+    assert "rank 0: OK" in r.stdout and "rank 1: OK" in r.stdout
+    assert "torch multiproc dryrun: PASS" in r.stdout

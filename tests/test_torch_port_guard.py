@@ -147,6 +147,20 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("rel", ["chip_smoke.py"] + sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("torch_*.py")))
+def test_port_scripts_import_no_jax(rel):
+    """chip_smoke.py and the port's tools (the multi-process dryruns
+    among them) run where JAX is not installed."""
+    for node in ast.walk(ast.parse((ROOT / rel).read_text())):
+        names = ([a.name for a in node.names]
+                 if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "xmhw_tpu"), n
+
+
 def test_port_exports_the_jax_package_names():
     import xmhw_tpu
 

@@ -112,6 +112,22 @@ def test_mhw_rank_matches_jax(events, device):
                                    atol=0, equal_nan=True, err_msg=k)
 
 
+def test_default_device_is_the_card(events):
+    """block_average()/mhw_rank() without ``device`` run on the card, so
+    here, without a GPU, they raise; reference_quirks=True takes the host
+    path whatever the device, as in the JAX package."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: nothing to refuse")
+    mhw, _ = events
+    with pytest.raises(RuntimeError, match="cuda"):
+        xt.block_average(mhw, period=[2001, 2003])
+    with pytest.raises(RuntimeError, match="cuda"):
+        xt.mhw_rank(mhw)
+    kw = dict(period=[2001, 2003], reference_quirks=True)
+    same_stats(xt.block_average(mhw, **kw),
+               xm.block_average(mhw, device=False, **kw), "quirks")
+
+
 def test_block_average_device_argument(grid, events):
     """device=True is "cuda" (raises here without a GPU, in
     test_torch_port_guard.py); a torch.device names the device; the

@@ -20,8 +20,8 @@ NetCDF4.
 
 ``device`` of threshold()/detect() and of the stream functions names a
 torch device (default ``"cuda"``); that of block_average()/mhw_rank()
-keeps the JAX package's bool (False: the numpy host path, True:
-``"cuda"``) or names a device.
+also takes the JAX package's bool (True, the default: ``"cuda"``;
+False: the numpy host path, the JAX package's default).
 
 Importing the package touches no device and sets no environment.
 """

@@ -16,6 +16,10 @@ float32 on the GPU runs the three CUDA kernels (clim percentile, event
 RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
 code. The stats stage of :func:`run_fused` is torch reductions
 (core/stats.py). CPU tensors always take the plain versions.
+
+The block functions read data that one process holds whole. Across
+processes (a global mesh, ``parallel.mesh``) each rank runs
+:func:`fused_threshold_detect` on its own device-resident shards.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from ..ops.doy_quantile import doy_quantile
 from ..parallel.mesh import (CellMesh, cell_mesh, cell_sharding, check_mesh,
-                             replicated)
+                             in_process_group, process_device, replicated)
 from .clim import clim_kernel, finish_clim
 from .features_scan import count_events, detect_kernel
 
@@ -59,17 +63,22 @@ def mesh_device(mesh, device) -> torch.device:
 
 def resolve_mesh(mesh, use_mesh, device) -> CellMesh:
     """The devices a run splits its cell blocks over. An explicit ``mesh``
-    is used as given (``device`` is then not read). Otherwise, with
-    ``use_mesh``, every visible GPU when ``device`` is the un-indexed
-    ``"cuda"`` and more than one is visible (the JAX package's rule,
-    ``xmhw_tpu/core/pipeline.py:49-50``); else the one device
-    ``device`` names (``"cuda:1"`` or ``"cpu"``: one device)."""
+    is used as given (``device`` is then not read); one with entries of
+    other ranks raises ValueError (:func:`parallel.mesh.check_mesh`).
+    Otherwise, with ``use_mesh``, every visible GPU when ``device`` is the
+    un-indexed ``"cuda"`` and more than one is visible (the JAX package's
+    rule, ``xmhw_tpu/core/pipeline.py:49-50``), but only this process's
+    GPU (:func:`parallel.mesh.process_device`) inside an initialised
+    torch.distributed group, so that ranks do not each span every card;
+    else the one device ``device`` names (``"cuda:1"`` or ``"cpu"``: one
+    device)."""
     if check_mesh(mesh) is not None:
         return mesh
     dev = resolve_device(device)
     if (use_mesh and dev.type == "cuda" and dev.index is None
             and torch.cuda.device_count() > 1):
-        return cell_mesh()
+        return (CellMesh((process_device(),)) if in_process_group()
+                else cell_mesh())
     return CellMesh((dev,))
 
 
@@ -78,7 +87,9 @@ def use_kernels_for(dtype, dev, override=None) -> bool:
     accelerator, plain code otherwise, unless overridden."""
     if override is not None:
         return bool(override)
-    return np.dtype(dtype) == np.float32 and dev.type == "cuda"
+    f32 = (dtype == torch.float32 if isinstance(dtype, torch.dtype)
+           else np.dtype(dtype) == np.float32)
+    return f32 and dev.type == "cuda"
 
 
 def _block_size(n_cells, block, n_dev=1):
@@ -173,6 +184,52 @@ def _clim_block(x, tables, kernels, ndoy, pctile, smooth, smooth_w,
         return finish_clim(th, se, smooth, smooth_w, patch_feb29)
     return clim_kernel(x, tables["gidx"], pctile=pctile, smooth=smooth,
                        smooth_w=smooth_w, patch_feb29=patch_feb29)
+
+
+def fused_threshold_detect(ts, doy, doy_pos, pctile=90, smooth=True,
+                           smooth_w=31, patch_feb29=True, K=64,
+                           min_duration=5, join_gaps=True, max_gap=2, *,
+                           w=5, ndoy=366, use_kernels=None):
+    """threshold() + detect() as ONE device-resident step for a cell
+    block: the climatology feeds detection without leaving the device.
+    Port of :func:`xmhw_tpu.core.pipeline.fused_threshold_detect`, the
+    step each process runs on its own shards of a global mesh
+    (``tools/torch_multiproc_dryrun.py``).
+
+    ``ts``: the (T, C) block, a contiguous tensor on its device. ``doy``:
+    (T,) numpy int day of year of each step. The JAX function takes the
+    window gather index built from it (``build_window_index(doy, w,
+    ndoy)``); the clim kernel takes range tables and an ``rmax``-padded
+    series instead, so both come from ``doy`` here, with the window
+    half-width ``w`` and the ``ndoy`` climatology rows. ``doy_pos``: (T,)
+    int32 climatology row of each step (tensor or array). The other
+    arguments and their defaults are the JAX function's.
+
+    Runs at the fixed capacity ``K``, with no counting pass and no retry:
+    ``n_events`` is the raw count per cell and may exceed K, as in JAX.
+    A float32 CUDA block launches kernels 1-3 once each: the clim
+    percentile, the event RLE in its detect mode
+    (``mhw_filter(full=False, slot=False)``) and the event scan; CPU
+    tensors and float64 take the plain versions (:func:`use_kernels_for`,
+    ``use_kernels`` overrides).
+
+    Returns (th, se, table, n_events): the (ndoy, C) climatologies, the
+    dict of (K, C) event-table tensors and the (C,) int32 raw counts.
+    """
+    dev = ts.device
+    kernels = use_kernels_for(ts.dtype, dev, use_kernels)
+    kclim, rmax, tables = _clim_tables(np.asarray(doy), w, ndoy, kernels,
+                                       (dev,))
+    x = ts
+    if rmax:
+        x = torch.cat([ts, ts.new_full((rmax, ts.shape[1]), float("nan"))])
+    th, se = _clim_block(x, tables[dev], kclim, ndoy, pctile, smooth,
+                         smooth_w, patch_feb29)
+    pos = torch.as_tensor(doy_pos, dtype=torch.int32, device=dev)
+    table, n_events, _ = detect_kernel(
+        ts, th, se, pos, K, min_duration=min_duration, join_gaps=join_gaps,
+        max_gap=max_gap, use_kernels=kernels)
+    return th, se, table, n_events
 
 
 def run_clim(ts_np, doy_np, w, ndoy, pctile, smooth, smooth_w, patch_feb29,

@@ -48,8 +48,22 @@ I_CHANNELS = ("start", "end", "peak")
 
 def event_stats_plain(ts, th, se, doy_pos, day, is_start, K):
     """Plain torch version: a segmented reduction over the event slot
-    (cumsum(is_start) - 1) with ``index_add_``/``scatter_reduce_``;
-    two-pass variances."""
+    (cumsum(is_start) - 1); two-pass variances.
+
+    Sums add each event's days in time order, one after the other from
+    0.0 (``torch.segment_reduce`` over the days taken cell by cell), so
+    their bits are the same from run to run and on the CPU and CUDA: no
+    atomics, no order that depends on the launch. Maxima and minima
+    (``scatter_reduce_``) do not depend on the order. Only the standard
+    deviations may differ between the two by one ulp: float64
+    ``torch.sqrt`` rounds correctly on CUDA and not always on the CPU.
+
+    The order on CUDA rests on how torch's CUDA ``segment_reduce`` kernel
+    treats a 2-D input with an inner size of 1 (one thread a segment, in
+    order), which torch does not document; checked on torch 2.11.0+cu128,
+    where a 1-D input already gives other bits. A later torch may change
+    it: ``tests/test_torch_cuda.py::test_float64_detect_repeats_its_bits``
+    and ``chip_smoke.py``'s float64 repeats guard it on the card."""
     T, C = ts.shape
     dt, dev = ts.dtype, ts.device
     nan = float("nan")
@@ -65,8 +79,12 @@ def event_stats_plain(ts, th, se, doy_pos, day, is_start, K):
     slot = torch.cumsum(is_start.to(torch.int32), dim=0,
                         dtype=torch.int32) - 1
     n_events = is_start.sum(dim=0, dtype=torch.int32)
-    t_idx, c_idx = torch.nonzero(day & (slot < K), as_tuple=True)
-    seg = slot[t_idx, c_idx].long() * C + c_idx
+    # the days cell by cell, each cell's in time order: every event's
+    # days are contiguous, the events of a cell in slot order
+    c_idx, t_idx = torch.nonzero((day & (slot < K)).T, as_tuple=True)
+    s_idx = slot[t_idx, c_idx].long()
+    seg = s_idx * C + c_idx
+    lengths = torch.bincount(c_idx * K + s_idx, minlength=C * K)
     t_ev = t_idx.to(torch.int64)
     x = ts[t_idx, c_idx]
     h = thresh_t[t_idx, c_idx]
@@ -79,8 +97,11 @@ def event_stats_plain(ts, th, se, doy_pos, day, is_start, K):
     KC = K * C
 
     def seg_sum(v):
-        return torch.zeros(KC, dtype=v.dtype, device=dev).index_add_(
-            0, seg, v)
+        # a 2-D input: on CUDA one thread sums each segment in order (a
+        # 1-D input takes a tree reduction there, other bits than the CPU)
+        s = torch.segment_reduce(v[:, None], "sum", lengths=lengths,
+                                 initial=0.0, unsafe=True)
+        return s.view(C, K).T.reshape(KC)
 
     def seg_reduce(v, how, init):
         out = torch.full((KC,), init, dtype=v.dtype, device=dev)

@@ -228,19 +228,24 @@ def block_average(
     removeMissing=False,
     split=False,
     reference_quirks=False,
-    device=False,
+    device=True,
 ):
     """Statistics on blocks of years (reference: stats.py:27-183).
 
     Returns a Dataset with dims (years [, lat, lon ...]); the ``years``
     coordinate holds the left edge of each block.
 
-    ``device``: False runs the numpy host path; True means ``"cuda"``; a
-    string or torch.device runs the aggregations as torch reductions on
-    that device (core/stats.py) — the planet-scale path; results match
-    the host path (tested). A CUDA device without a GPU raises.
+    ``device``: True (the default) means ``"cuda"``; a string or
+    torch.device runs the aggregations as torch reductions on that
+    device (core/stats.py) — the planet-scale path; results match the
+    host path (tested). False runs the numpy host path, the JAX
+    package's default. A CUDA device without a GPU raises.
+    ``reference_quirks=True`` always takes the host path, as in the JAX
+    package, so ``device`` is then not read.
     """
-    dev = _stats_device(device)
+    # the device branch has no aggregation of the reference's swapped
+    # sources, so the quirks take the host path whatever the device
+    dev = None if reference_quirks else _stats_device(device)
     mhw = as_dataset(mhw)
     if dstime is not None and not isinstance(dstime, (Dataset, DataArray)):
         dstime = (as_dataset(dstime) if hasattr(dstime, "data_vars")
@@ -300,9 +305,7 @@ def block_average(
     coords = {"years": years_coord}
     for d in grid_dims:
         coords[d] = mhw[mtime].coords[d]
-    # reference_quirks takes the host path whatever the device: the
-    # device branch has no aggregation of the reference's swapped sources
-    if dev is not None and not reference_quirks:
+    if dev is not None:
         from .core.stats import EVENT_VARS, binned_event_stats
 
         vals = np.stack([
@@ -554,14 +557,15 @@ def rank_variable(values, axis=0):
     return np.moveaxis(out.reshape(values.shape), 0, axis)
 
 
-def mhw_rank(mhwds, nYears=None, device=False, cell_block=65536):
+def mhw_rank(mhwds, nYears=None, device=True, cell_block=65536):
     """Rank each MHW property (1 = largest) and derive return periods.
 
     Reference: stats.py:446-490. ``nYears`` defaults to the record length
     derived from time_start/time_end instead of the reference's hard-coded
-    constant. ``device`` as in block_average: a device runs the ranking
-    as a stable sort over cell blocks there (core/stats.py:
-    rank_events_desc — exact same tie semantics), the planet-scale path.
+    constant. ``device`` as in block_average (default True: ``"cuda"``;
+    False: the numpy host path): a device runs the ranking as a stable
+    sort over cell blocks there (core/stats.py: rank_events_desc — exact
+    same tie semantics), the planet-scale path.
     """
     dev = _stats_device(device)
     mhwds = as_dataset(mhwds)
