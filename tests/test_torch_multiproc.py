@@ -205,7 +205,8 @@ def run_tool(name, *args, timeout=240):
 
 
 def test_two_process_dryrun():
-    out = run_tool("torch_multiproc_dryrun.py", "--timeout", "200")
+    out = run_tool("torch_multiproc_dryrun.py", "--device", "cpu",
+                   "--timeout", "200")
     assert "rank 0: OK" in out and "rank 1: OK" in out
     assert "torch multiproc dryrun: PASS" in out
     # 2 ranks x 2 entries over 32 cells: each rank fed its own two
@@ -248,6 +249,15 @@ def test_against_plain_catches_each_kind(kind):
         assert errs["exact_differ"] == 1
 
 
+@pytest.mark.parametrize("name", ["torch_multiproc_dryrun",
+                                  "torch_multiproc_stream"])
+def test_tools_default_to_the_card(name):
+    """Both multi-process tools run on the card unless asked for the CPU."""
+    tool = __import__(name)
+    assert tool.parse([]).device == "cuda"
+    assert tool.parse(["--device", "cpu"]).device == "cpu"
+
+
 def test_dryrun_fails_when_a_rank_fails():
     """A rank that cannot run (no GPU here) fails the run; the launcher
     kills the other rank instead of waiting for it."""
@@ -265,6 +275,7 @@ def test_dryrun_fails_when_a_rank_fails():
 
 def test_two_process_streamed_bands():
     pytest.importorskip("h5py")
-    out = run_tool("torch_multiproc_stream.py", "--timeout", "200")
+    out = run_tool("torch_multiproc_stream.py", "--device", "cpu",
+                   "--timeout", "200")
     assert "rank 0: OK" in out and "rank 1: band (5, 12)" in out
     assert "byte-equal" in out and "torch multiproc stream: PASS" in out

@@ -15,14 +15,15 @@ bars of ``BARS``: on a GPU that compares the CUDA kernels with plain
 PyTorch on this path's own shards. The ranks then ``all_reduce`` their
 event totals, which must equal the unsharded total.
 
-    python tools/torch_multiproc_dryrun.py            # CPU: 2 gloo ranks
-    python tools/torch_multiproc_dryrun.py --device cuda --years 40 \\
-        --cells 4096 --K 128                          # the card's size
+    python tools/torch_multiproc_dryrun.py --years 40 --cells 4096 \\
+        --K 128                                       # the card's size
+    python tools/torch_multiproc_dryrun.py --device cpu   # 2 gloo ranks
     python tools/torch_multiproc_dryrun.py [flags] RANK PORT   # one rank
 
-CPU defaults: 2 years, 32 cells, K = 8, 2 mesh entries per rank (the JAX
-tool gives each process 4 of 8 devices). On CUDA each rank holds one
-entry. Backend: ``gloo`` on the CPU and where the ranks share a GPU (NCCL
+The device defaults to ``cuda`` (it raises without a GPU); ``--device
+cpu`` runs the plain versions. Sizes default to 2 years, 32 cells, K = 8.
+On the CPU each rank holds 2 mesh entries (the JAX tool gives each
+process 4 of 8 devices), on CUDA one. Backend: ``gloo`` on the CPU and where the ranks share a GPU (NCCL
 refuses two ranks on one device), ``nccl`` where every rank has its own
 GPU; a failed init raises, with no second try. Rank 0 builds the CUDA
 kernels before a barrier, so the other ranks load its library.
@@ -61,7 +62,7 @@ EXACT = ("event", "index_", "time_", "duration", "category")
 
 def parse(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     p.add_argument("--ranks", type=int, default=2)
     p.add_argument("--years", type=int, default=2)
     p.add_argument("--cells", type=int, default=32)

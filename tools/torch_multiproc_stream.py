@@ -19,8 +19,8 @@ land, stripes of 5 rows. The band edge, row 5, lies on a stripe edge:
 each stripe then holds the same ocean cells in the banded and the
 one-process runs, as a deployment whose bands tile the stripe grid.
 
-    python tools/torch_multiproc_stream.py           # 2 gloo ranks, CPU
-    python tools/torch_multiproc_stream.py --device cuda
+    python tools/torch_multiproc_stream.py           # on the card
+    python tools/torch_multiproc_stream.py --device cpu   # 2 gloo ranks
     python tools/torch_multiproc_stream.py [flags] RANK PORT DIR   # one rank
 
 The streamed functions read and write NetCDF4 through h5py: without it
@@ -53,7 +53,7 @@ PARTS = ("clim", "mhw", "block")
 
 def parse(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     p.add_argument("--timeout", type=float, default=300.0,
                    help="seconds each rank may take")
     p.add_argument("rank", type=int, nargs="?")
