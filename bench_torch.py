@@ -870,14 +870,11 @@ def grid_cell(mhw, i, j):
                         for k in mhw.keys()}, keep)
 
 
-def check_api(rep, dev, da, clim, mhw, seed, thr_kw, det_kw, point=True):
+def check_api(rep, dev, da, clim, mhw, seed, thr_kw, det_kw):
     """16 sampled ocean cells of the timed float32 output against the
     port's plain versions on the CPU at chip_smoke.py's reference bars;
     the same cells in float64 on ``dev`` against core/point.py (the host
-    point path) in float64 at rtol 1e-9, atol 1e-12. ``point=False``
-    holds them against the plain grid path on the CPU instead: the point
-    path smooths over a 31-step window that a year of 12 steps cannot
-    hold (its climatology has 6 rows), in the JAX package too."""
+    point path) in float64 at rtol 1e-9, atol 1e-12."""
     import xmhw_tpu_torch as xt
 
     cs = smoke()
@@ -901,28 +898,18 @@ def check_api(rep, dev, da, clim, mhw, seed, thr_kw, det_kw, point=True):
         err["events"] = max(err["events"], events_agree(
             got, want, f"{rep.cell} cell {c} events", cs.TOL["scan"],
             cs.TOL["scan"]))
-    # float64 on the device against the host point path (or, where the
-    # point path cannot take the series, the plain grid path on the CPU)
+    # float64 on the device against the host point path
     g = xt.threshold(sub, device=dev, dtype=np.float64, **thr_kw)
     m = xt.detect(sub, g["thresh"], g["seas"], device=dev, dtype=np.float64,
                   events_layout="compact", **det_kw)
-    if not point:
-        hc = xt.threshold(sub, device="cpu", dtype=np.float64, **thr_kw)
-        hm = xt.detect(sub, hc["thresh"], hc["seas"], device="cpu",
-                       dtype=np.float64, events_layout="compact", **det_kw)
     for c in range(len(cells)):
-        if point:
-            pt = sub.isel(lat=0, lon=c)
-            p = xt.threshold(pt, device=dev, dtype=np.float64, **thr_kw)
-            pm = xt.detect(pt, p["thresh"], p["seas"], device=dev,
-                           dtype=np.float64, **det_kw)
-            want = {v: p[v].data for v in ("thresh", "seas")}
-            keep = np.isfinite(np.asarray(pm["event"].data))
-            rows = cell_events({k: pm[k].data for k in pm.keys()}, keep)
-        else:
-            want = {v: np.asarray(hc[v].data)[:, 0, c]
-                    for v in ("thresh", "seas")}
-            rows = grid_cell(hm, 0, c)
+        pt = sub.isel(lat=0, lon=c)
+        p = xt.threshold(pt, device=dev, dtype=np.float64, **thr_kw)
+        pm = xt.detect(pt, p["thresh"], p["seas"], device=dev,
+                       dtype=np.float64, **det_kw)
+        want = {v: p[v].data for v in ("thresh", "seas")}
+        keep = np.isfinite(np.asarray(pm["event"].data))
+        rows = cell_events({k: pm[k].data for k in pm.keys()}, keep)
         for v, w in want.items():
             np.testing.assert_allclose(
                 np.asarray(g[v].data)[:, 0, c], w, equal_nan=True,
@@ -935,7 +922,7 @@ def check_api(rep, dev, da, clim, mhw, seed, thr_kw, det_kw, point=True):
         rep.add(f"plain_max_{k}", v, f"|diff| ({len(cells)} cells, "
                 "float32, against the CPU)")
     rep.add("checked_events", n_ev, f"events ({len(cells)} cells; float64 "
-            f"also against {'the point path' if point else 'the CPU'})")
+            "also against the point path)")
     return cells, ei, ej
 
 
@@ -987,8 +974,7 @@ def monthly_tstep(devices, seed, card, *, years=40, grid=50, reps=5,
                          HOST_LAYERS, trace_dir)
     rep.add("steps", len(t), "months")
     rep.add("events", int(np.isfinite(mhw["event"].data).sum()), "events")
-    check_api(rep, dev, da, clim, mhw, seed, {"tstep": True}, det_kw,
-              point=False)
+    check_api(rep, dev, da, clim, mhw, seed, {"tstep": True}, det_kw)
     return rep
 
 

@@ -14,7 +14,7 @@ Phases, one or more lines each:
    the time of one PyTorch call that computes the same function, where
    there is one. The clim percentile (doy_quantile) also runs at pctile
    90, 87.5 and 10 on the 40-year tables, the 30-year climatology's
-   tables, a block of edge pools and the largest pool its wrapper takes
+   tables, a block of edge pools and the largest pool its shared tile holds
    (thresholds bit-equal, means within one float32 ulp), and the radix
    steps its common-prefix skip saves are counted. The running-bound
    kernel (run_bound), which no path calls, is driven here and in the
@@ -68,10 +68,30 @@ Phases, one or more lines each:
    (stream_block_average's float64 event and day statistics of one stripe,
    stream_rank's batched ranks), on the slice's events, on the card
    against the CPU;
-11. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
+11. options: threshold() + detect() in float32 with each public option of
+   OPTIONS (coldSpells, windowHalfWidth 11 and 15, smoothPercentile=False,
+   smoothPercentileWidth=11, climatologyPeriod=[1991, 2020], minDuration=3
+   with maxGap=1, joinGaps=False, intermediate, anynans with skipna and
+   maxPadLength=2 on a grid with NaN gaps, reference_quirks, the noleap
+   and 360_day calendars, the union layout beside the compact one) over
+   the slice's grid through the kernels (every kernel's launch counter
+   must advance), held against the plain versions on the card on 13 of
+   its lat rows: thresholds bit-equal, seas within 1e-5, event counts,
+   positions, times and NaN patterns exact, event floats within 2e-3 of
+   1 + |plain|. One line each: the kernels' wall and launches, the
+   largest differences and the events compared. Then the same for two
+   records whose pools pass kernel 1's shared tile (1,816 rows), at their
+   real size: an ERSST-v5-shaped monthly grid (89 x 180, 1854-2024,
+   tstep=True; pools of 171 years x 11 rows = 1,881) and a 4,096-cell
+   block of daily 1940-2024 at windowHalfWidth=11 (85 x 23 = 1,955
+   rows): kernel 1 must launch by its long route only. Each prints its
+   Z, its wall, and kernel 1 alone at its shape (CUDA events) beside its
+   bound, and on 1,024 cells beside its plain version and
+   torch.nanquantile + torch.nanmean;
+12. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
    the standard shapes on the card; every kernel's launch counter must
    advance;
-12. stream: the streamed pipelines file to file, which read and write
+13. stream: the streamed pipelines file to file, which read and write
    NetCDF through h5py. Where h5py is installed: a 160 x 64 grid (10,240
    cells, ~20 % land, 40 daily years, float32, ~600 MB) through stream_run
    (3 stripes) and through the staged chain stream_threshold ->
@@ -82,6 +102,8 @@ Phases, one or more lines each:
    says that the phase did not run and why.
 
 Then a JSON line with one entry per kernel (``launches``: in the slice;
+kernel 1's ``long_records``: its rows at the options phase's long
+records;
 ``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0];
 ``procs_launches``: each rank's in the procs phase; the event scan's
 ``plain_f64_ms``: its plain version in float64), and last the line
@@ -198,6 +220,15 @@ def bits():
     import torch_multiproc_dryrun
 
     return torch_multiproc_dryrun
+
+
+def doy_edges():
+    """tests/test_torch_doy_edges.py: kernel 1's edge pools, the largest
+    staged pool and the calendar helpers, shared with the tests."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_doy_edges
+
+    return test_torch_doy_edges
 
 
 def same_bits(a, b, what):
@@ -467,7 +498,7 @@ def clim_kernel(card, t, ts, args):
     within one float32 ulp (both round a float64 sum once, summed in
     another order), at pctile 90, 87.5 and 10 on the main path's 40-year
     block ``args``, on the 30-year climatology's tables the slice uses, on
-    a block of edge pools and on the largest pool the wrapper takes. Also
+    a block of edge pools and on the largest pool its shared tile holds. Also
     the radix steps the common-prefix skip saves over the 40-year block,
     and the yardstick torch.nanquantile + torch.nanmean on its gathered
     pool. Returns the 40-year pctile-90 outputs, the largest |err|, the
@@ -478,8 +509,7 @@ def clim_kernel(card, t, ts, args):
     from xmhw_tpu_torch.ops import doy_quantile as dq
     from xmhw_tpu_torch.xrlite import TimeIndex
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    import test_torch_doy_edges as edges
+    edges = doy_edges()
 
     def tables(tv, w=5):
         doy, ndoy = compute_doy(TimeIndex(tv))
@@ -819,8 +849,8 @@ def _t(a):
 def reset_launches():
     from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle
 
-    for fn in (doy_quantile.doy_quantile, detect_scan.event_stats):
-        fn.launches = 0
+    doy_quantile.reset_launches()
+    detect_scan.event_stats.launches = 0
     rle.reset_launches()
 
 
@@ -1360,6 +1390,342 @@ def phase_stream_steps(card, da, clim, mhw):
         f"CPU {hrs:.3f} s, equal  [{card}]")
 
 
+# The options phase: each public option of threshold() and detect(), on a
+# variant of the slice's grid ("daily": the slice's; "gaps": NaN gaps in a
+# quarter of its ocean cells; "noleap" and "360_day": its values on those
+# calendars), through the kernels on every cell and held against the
+# plain versions on the first OPTION_LATS lat rows (the plain pool gather
+# of all 4,096 cells at w = 15 would take ~7 GB and its select several
+# times that). detect() uses events_layout="compact" unless the option
+# names the layout.
+OPTIONS = {
+    "coldSpells=True": ("daily", dict(coldSpells=True),
+                        dict(coldSpells=True)),
+    "windowHalfWidth=11": ("daily", dict(windowHalfWidth=11), {}),
+    "windowHalfWidth=15": ("daily", dict(windowHalfWidth=15), {}),
+    "smoothPercentile=False": ("daily", dict(smoothPercentile=False), {}),
+    "smoothPercentileWidth=11": ("daily", dict(smoothPercentileWidth=11),
+                                 {}),
+    "climatologyPeriod=[1991, 2020]": (
+        "daily", dict(climatologyPeriod=[1991, 2020]), {}),
+    "minDuration=3, maxGap=1": ("daily", {}, dict(minDuration=3, maxGap=1)),
+    "joinGaps=False": ("daily", {}, dict(joinGaps=False)),
+    "intermediate=True": ("daily", {}, dict(intermediate=True)),
+    "anynans=True, skipna=True": ("gaps", dict(anynans=True, skipna=True),
+                                  dict(anynans=True)),
+    "maxPadLength=2": ("gaps", dict(maxPadLength=2), dict(maxPadLength=2)),
+    "reference_quirks=True": ("daily", {}, dict(reference_quirks=True)),
+    "noleap calendar": ("noleap", {}, {}),
+    "360_day calendar": ("360_day", {}, dict(tstep=True)),
+    "events_layout='union'": ("daily", {}, dict(events_layout="union")),
+}
+OPTION_LATS = 13  # 1,040 cells of the 64 x 80 grid (~830 ocean)
+# the event variables held exactly: counts, positions, times
+EXACT_VARS = ("event", "events", "duration", "index_start", "index_end",
+              "index_peak")
+
+
+def calendar_grid(da, calendar, days_a_year, years=40):
+    """The first ``years`` * ``days_a_year`` days of ``da``'s values on a
+    synthetic calendar (CF day offsets from 1982-01-01)."""
+    from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex
+
+    T = years * days_a_year
+    ti = TimeIndex(np.arange(T, dtype=np.float64) + 0.5, calendar=calendar,
+                   units="days since 1982-01-01")
+    coords = {k: c.copy() for k, c in da.coords.items() if k != "time"}
+    return DataArray(da.data[:T], da.dims,
+                     {**coords, "time": Coord(("time",), ti)},
+                     dict(da.attrs))
+
+
+def gappy(da, seed=6):
+    """``da`` with NaN gaps in a quarter of its ocean cells: runs of 1
+    and 2 days (which maxPadLength=2 fills) and of 5 days."""
+    x = np.array(da.data)
+    cells = np.argwhere(ocean_of(da))
+    rng = np.random.default_rng(seed)
+    T = x.shape[0]
+    for i, j in cells[rng.permutation(len(cells))[:len(cells) // 4]]:
+        for length in (1, 2, 5, 1, 2):
+            s = int(rng.integers(1, T - 6))
+            x[s:s + length, i, j] = np.nan
+    return da.copy(data=x)
+
+
+def option_grids(da, years=40):
+    """The grids OPTIONS name, from the daily grid ``da``; the synthetic
+    calendars hold its first ``years`` years' worth of values."""
+    return {"daily": da, "gaps": gappy(da),
+            "noleap": calendar_grid(da, "noleap", 365, years),
+            "360_day": calendar_grid(da, "360_day", 360, years)}
+
+
+class plain_route:
+    """Within the block, the port's block driver (core/pipeline) runs the
+    plain versions for every dtype and device, as ``use_kernels=False``
+    does: the yardstick the options phase holds the kernels to."""
+
+    def __enter__(self):
+        from xmhw_tpu_torch.core import pipeline
+
+        self.rule = pipeline.use_kernels_for
+        pipeline.use_kernels_for = lambda dtype, dev, override=None: False
+
+    def __exit__(self, *exc):
+        from xmhw_tpu_torch.core import pipeline
+
+        pipeline.use_kernels_for = self.rule
+
+
+def api_run(da, thr_kw, det_kw, dev=None):
+    """threshold() then detect() of ``da`` with an option's keywords:
+    [clim, mhw] (and the intermediate Dataset with intermediate=True)."""
+    import xmhw_tpu_torch as xt
+
+    dev = dev or DEV
+    det_kw = {"events_layout": "compact", **det_kw}
+    clim = xt.threshold(da, device=dev, **thr_kw)
+    out = xt.detect(da, clim["thresh"], clim["seas"], device=dev, **det_kw)
+    return [clim, *out] if isinstance(out, tuple) else [clim, out]
+
+
+def on_cells(var, like):
+    """``var``'s data at the (lat, lon) cells of ``like`` (a variable of a
+    run over fewer cells), matched by coordinate value."""
+    data = np.asarray(var.data)
+    for d in ("lat", "lon"):
+        have = {float(v): i for i, v in enumerate(var.coords[d].values)}
+        pos = [have[float(v)] for v in like.coords[d].values]
+        data = np.take(data, pos, axis=var.dims.index(d))
+    return data
+
+
+def outputs_agree(kern, plain, what):
+    """A kernel run's Datasets against the plain run's, on the plain run's
+    cells: the same variables; thresholds bit-equal, seas within TOL;
+    event counts, positions, times and NaN patterns exact, the other
+    floats within TOL["scan"] of 1 + |plain|. A compact table of the
+    kernel run may hold more event slots (its cells' most events): those
+    rows must be empty. Returns (max |seas diff|, max event float diff)."""
+    errs = [0.0, 0.0]
+    for part, a, b in zip(("clim", "mhw", "inter"), kern, plain):
+        if sorted(a.keys()) != sorted(b.keys()):
+            raise AssertionError(f"{what} {part}: variables differ")
+        for k in b.keys():
+            label = f"{what} {part} {k}"
+            x, y = on_cells(a[k], b[k]), np.asarray(b[k].data)
+            if a[k].dims[0] == "ev" and x.shape[0] > y.shape[0]:
+                rest = x[y.shape[0]:]
+                if not (np.isnat(rest) if rest.dtype.kind == "M"
+                        else np.isnan(rest)).all():
+                    raise AssertionError(f"{label}: events past the "
+                                         "plain run's slots")
+                x = x[:y.shape[0]]
+            if x.shape != y.shape:
+                raise AssertionError(f"{label}: shapes {x.shape} {y.shape}")
+            if k == "thresh":
+                if not bits().np_same_bits(x, y):
+                    raise AssertionError(f"{label}: not bit-equal")
+            elif k == "seas":
+                errs[0] = max(errs[0], max_err(_t(x), _t(y), label,
+                                               TOL["seas"]))
+            elif y.dtype.kind in "Mmbiu" or k in EXACT_VARS:
+                if y.dtype.kind in "Mm":  # NaT as its integer
+                    x, y = x.view("i8"), y.view("i8")
+                if not np.array_equal(x, y, equal_nan=y.dtype.kind == "f"):
+                    raise AssertionError(f"{label}: not equal")
+            else:
+                errs[1] = max(errs[1], max_err(_t(x), _t(y), label,
+                                               TOL["scan"], TOL["scan"]))
+    return errs
+
+
+def option_pair(da, thr_kw, det_kw, what, lats=OPTION_LATS):
+    """One option: the kernel run over ``da`` (every kernel's launch
+    counter must advance) against the plain run over its first ``lats``
+    lat rows (union layout: both runs over those rows). Returns (wall of
+    the kernel run in s, launches, events in the compared cells, errs)."""
+    import torch
+
+    sub = da.isel(lat=slice(0, lats))
+    reset_launches()
+    t = time.perf_counter()
+    kern = api_run(sub if det_kw.get("events_layout") == "union" else da,
+                   thr_kw, det_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+    with plain_route():
+        plain = api_run(sub, thr_kw, det_kw)
+    errs = outputs_agree(kern, plain, what)
+    mhw = plain[1]
+    n = int(np.isfinite(np.asarray(mhw["duration"].data)).sum())
+    if n == 0:
+        raise AssertionError(f"{what}: the compared cells hold no event")
+    return wall, launches, n, errs
+
+
+def phase_options(card, da):
+    """Every option of OPTIONS, then each of LONG_RECORDS: kernels against
+    the plain versions. Returns kernel 1's rows at the long records."""
+    grids = option_grids(da)
+    for name, (data, thr_kw, det_kw) in OPTIONS.items():
+        wall, launches, n, errs = option_pair(grids[data], thr_kw, det_kw,
+                                              f"options {name}")
+        log(f"options: {name} ({data} grid): kernels {wall:.3f} s, "
+            f"launches {launches}; against plain on {OPTION_LATS} lat rows: "
+            f"thresholds bit-equal, seas {errs[0]:.3g}, {n} events agree "
+            f"(floats {errs[1]:.3g})  [{card}]")
+    return long_records(card)
+
+
+# Two long records at their real size, whose pools pass kernel 1's shared
+# tile (1,816 rows): ERSST v5 (NOAA's monthly 2-degree reconstruction,
+# 89 x 180, Jan 1854 - Dec 2024) with tstep=True and every other option
+# at its default, and one 4,096-cell block of a daily ERA5-length record
+# (1940-2024) at windowHalfWidth=11. LONG_PLAIN_LATS: the lat rows the
+# plain versions run on (ERA5's whole block would gather a 11.7 GB pool).
+LONG_RECORDS = {
+    "ersst_v5_monthly": dict(thr=dict(tstep=True), det=dict(tstep=True),
+                             plain_lats=89),
+    "era5_daily_w11": dict(thr=dict(windowHalfWidth=11), det={},
+                           plain_lats=8),
+}
+
+
+def ersst_grid(seed=8, land=0.3):
+    """An ERSST-v5-shaped field: 89 x 180 cells at 2 degrees (88S-88N,
+    0-358E), monthly Jan 1854 - Dec 2024 (T = 2,052), float32: a
+    latitude-dependent base, a seasonal cycle of either hemisphere's
+    phase, a slow trend and AR(1) monthly anomalies; ``land`` of the
+    cells all-NaN."""
+    from xmhw_tpu_torch.xrlite import Coord, DataArray
+
+    t = doy_edges().monthly_times(1854, 2024)
+    lat = np.arange(-88.0, 89.0, 2.0)
+    lon = np.arange(0.0, 360.0, 2.0)
+    rng = np.random.default_rng(seed)
+    T, n = len(t), len(lat) * len(lon)
+    la = np.repeat(lat, len(lon))
+    m = np.arange(T)[:, None]
+    x = np.empty((T, n))
+    x[0] = rng.normal(0, 0.5, n)
+    eps = rng.normal(0, 0.4, (T, n))
+    for i in range(1, T):
+        x[i] = 0.6 * x[i - 1] + eps[i]
+    ts = (28 - 30 * (la / 90) ** 2 + 0.3 * m / 120
+          + 2.5 * np.sin(2 * np.pi * m / 12) * np.sign(la + 0.5) + x)
+    ts = ts.astype(np.float32)
+    ts[:, rng.permutation(n)[:int(land * n)]] = np.nan
+    return DataArray(ts.reshape(T, len(lat), len(lon)), ("time", "lat", "lon"),
+                     {"time": Coord(("time",), t),
+                      "lat": Coord(("lat",), lat),
+                      "lon": Coord(("lon",), lon)},
+                     {"units": "degree_C"})
+
+
+def long_record_grid(name):
+    if name == "ersst_v5_monthly":
+        return ersst_grid()
+    return grid(daily("1940-01-01", "2025-01-01"), 64, 64, seed=9, land=0)
+
+
+def kernel1_at(card, name, da, thr_kw, cells):
+    """Kernel 1 alone at a long record's shape: its route, Z, CUDA-event
+    time over the first 4,096 ocean cells beside its bound, and over
+    ``cells`` cells beside the plain version's and the yardstick
+    torch.nanquantile + torch.nanmean on the gathered pool (bit-equal
+    thresholds there, means within one float32 ulp). Returns the row."""
+    import torch
+
+    from xmhw_tpu_torch.core.calendar import build_window_ranges, compute_doy
+    from xmhw_tpu_torch.ops import doy_quantile as dq
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    tv = np.asarray(da.coords["time"].values)
+    doy, ndoy = compute_doy(TimeIndex(tv), keep_tstep=thr_kw.get("tstep",
+                                                                  False))
+    w = thr_kw.get("windowHalfWidth", 5)
+    starts, lens, ny, rmax = build_window_ranges(doy, w, ndoy)
+    ocean = ocean_of(da)
+    ts = np.ascontiguousarray(da.data[:, ocean][:, :CELLS])
+    cells = min(cells, ts.shape[1])
+
+    def args(c):
+        x = torch.full((len(tv) + rmax, c), float("nan"), device=DEV)
+        x[:len(tv)] = torch.from_numpy(np.ascontiguousarray(ts[:, :c])).to(
+            DEV)
+        return (x, torch.from_numpy(starts.reshape(-1)).to(DEV),
+                torch.from_numpy(lens.reshape(-1)).to(DEV), ndoy, ny, rmax)
+
+    full = args(ts.shape[1])
+    th, se = dq.doy_quantile(*full)
+    ms = cuda_ms(lambda: dq.doy_quantile(*full))
+    # a compare and an add for each finite pool value: the finite values
+    # of every (doy, year) range, from running counts over time
+    run = np.concatenate([[0], np.cumsum(np.isfinite(ts).sum(axis=1))])
+    pooled = int((run[starts + lens] - run[starts]).sum())
+    bms, by = bound(nbytes(*full[:3], th, se), 2 * pooled)
+    small = args(cells)
+    thk, sek = dq.doy_quantile(*small)
+    thp, sep = dq.doy_quantile_plain(*small)
+    same_bits(thk, thp, f"{name} kernel 1 thresh")
+    err = ulps(sek, sep, f"{name} kernel 1 seas")
+    pool = dq.gather_pool(*small)
+    sms = cuda_ms(lambda: dq.doy_quantile(*small))
+    pms = cuda_ms(lambda: dq.doy_quantile_plain(*small))
+    lms = cuda_ms(lambda: (torch.nanquantile(pool, 0.9, dim=1),
+                           torch.nanmean(pool, dim=1)))
+    sbms, sby = bound(nbytes(*small[:3], thk, sek),
+                      2 * int(torch.isfinite(pool).sum()))
+    del pool
+    row = {"record": name, "Z": ny * rmax, "route": dq.route(ny, rmax),
+           "cells": ts.shape[1], "ms": ms, "bound_ms": bms, "bound_by": by,
+           "small_cells": cells, "small_ms": sms, "small_plain_ms": pms,
+           "small_library_ms": lms, "small_bound_ms": sbms,
+           "seas_ulps": err, "pooled_values": pooled}
+    log(f"options: {name}: kernel 1 route {row['route']}, Z = "
+        f"{ny} years x {rmax} rows = {ny * rmax}; {ts.shape[1]} cells "
+        f"x {ndoy} doys: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}); "
+        f"{cells} cells: kernel {sms:.3f} ms, plain {pms:.3f} ms, "
+        f"nanquantile + nanmean {lms:.3f} ms, bound {sbms:.4f} ms ({sby}); "
+        f"thresholds bit-equal, seas within {err:.2f} ulp  [{card}]")
+    return row
+
+
+def long_records(card):
+    """threshold() + detect() of each LONG_RECORDS entry on the card
+    (kernels; kernel 1 by its long route) against the plain versions on
+    the card, and kernel 1 alone at that shape. Returns kernel 1's rows."""
+    from xmhw_tpu_torch.ops import doy_quantile as dq
+
+    rows = []
+    for name, rec in LONG_RECORDS.items():
+        t = time.perf_counter()
+        da = long_record_grid(name)
+        made = time.perf_counter() - t
+        C = int(ocean_of(da).sum())
+        wall, launches, n, errs = option_pair(da, rec["thr"], rec["det"],
+                                              name, rec["plain_lats"])
+        if dq.doy_quantile.by_route["long"] != launches["doy_quantile"]:
+            raise AssertionError(f"{name}: kernel 1 routes "
+                                 f"{dq.doy_quantile.by_route}: want long")
+        log(f"options: {name}: {C} ocean cells x {da.sizes['time']} "
+            f"steps (made in {made:.1f} s): threshold+detect through the "
+            f"kernels in {wall:.3f} s, launches {launches}, kernel 1 "
+            f"routes {dq.doy_quantile.by_route}; against plain on "
+            f"{rec['plain_lats']} lat rows: thresholds bit-equal, seas "
+            f"{errs[0]:.3g}, {n} events agree (floats {errs[1]:.3g})  "
+            f"[{card}]")
+        rows.append(kernel1_at(card, name, da, rec["thr"], 1024))
+        rows[-1]["wall_s"] = wall
+    return rows
+
+
 def phase_cli(card):
     """``python -m xmhw_tpu_torch warmup``, in process: build (the cached
     library) and the standard shapes on the card (40 daily years, one
@@ -1547,6 +1913,7 @@ def main():
     mesh_launches = phase_mesh(card, da, clim, mhw, fused)
     procs_launches = phase_procs(card)
     phase_stream_steps(card, da, clim, mhw)
+    rows[0]["long_records"] = phase_options(card, da)
     phase_cli(card)
     phase_stream(card)
     for r in rows:

@@ -161,7 +161,7 @@ def doy_case(dev, case):
     """Kernel 1's inputs: the lanes of clim_inputs (4 years); SST-like
     cells over 30 and 40 daily years (pools of 330 and 440 rows); the edge
     pools of tests/test_torch_doy_edges.py over 4 years; the largest pool
-    the wrapper takes (1,816 rows)."""
+    the shared tile holds (1,816 rows)."""
     if case == "lanes":
         return clim_inputs(dev)[0]
     if case == "largest":
@@ -208,13 +208,26 @@ def test_doy_quantile_kernel_matches_plain(dev, case, pctile):
         assert args[4] * args[5] == doy_edges.LARGEST_Z
 
 
-def test_doy_quantile_refuses_pools_past_the_tile(dev):
-    args = list(doy_case(dev, "largest"))
-    args[4] += 1  # ny * rmax = 1,824 rows: past the 227 KB shared tile
-    args[1] = torch.zeros(args[3] * args[4], dtype=torch.int32, device=dev)
-    args[2] = torch.zeros_like(args[1])
-    with pytest.raises(ValueError):
-        doy_quantile.doy_quantile(*args)
+@pytest.mark.parametrize("name", sorted(doy_edges.PAST_TILE))
+def test_doy_quantile_takes_pools_past_the_tile(dev, name):
+    """Pools past the 1,816 rows of the shared tile (1,817 to 6,400 rows:
+    ERSST v5's monthly record, ERA5's daily one at w = 11 and 15, random
+    tables) take the kernel's long route over 300 cells of every edge
+    kind: thresholds bit-equal to the plain version, means within one
+    float32 ulp, at pctile 90 and 87.5; one launch each, by that route."""
+    T, starts, lens, ndoy, ny, rmax = doy_edges.past_tile(name)
+    ts = doy_edges.edge_series(T, 300, seed=7)
+    args = padded_args(dev, ts, starts, lens, ndoy, ny, rmax)
+    for pctile in (90, 87.5):
+        before = doy_quantile.doy_quantile.launches
+        long = doy_quantile.doy_quantile.by_route["long"]
+        thk, sek = doy_quantile.doy_quantile(*args, pctile=pctile)
+        thp, sep = doy_quantile.doy_quantile_plain(*args, pctile=pctile)
+        torch.cuda.synchronize()
+        assert doy_quantile.doy_quantile.launches == before + 1
+        assert doy_quantile.doy_quantile.by_route["long"] == long + 1
+        assert same_bits(thk, thp), pctile
+        assert within_one_ulp(sek, sep), pctile
 
 
 def scan_case(dev, name):

@@ -2,9 +2,9 @@
 
 * The pure-numpy host modules are copies of the JAX package's: they must
   not drift apart (import lines aside). Where a module is only partly
-  numpy (stats_api.py, identify.py, stream.py, __main__.py), each copied
-  function, class and module constant must have the original's syntax
-  tree.
+  numpy (stats_api.py, identify.py, stream.py, __main__.py), or repairs
+  a function of the original (core/point.py), each copied function,
+  class and module constant must have the original's syntax tree.
 * Importing the port loads neither JAX nor the JAX package, and the port
   exports every name the JAX package does.
 * device="cuda" without a GPU raises; it never runs on the CPU quietly.
@@ -27,7 +27,7 @@ import xmhw_tpu_torch as xt  # noqa: E402
 from xmhw_tpu_torch.ops import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-COPIES = ["annotate.py", "exception.py", "core/calendar.py", "core/point.py",
+COPIES = ["annotate.py", "exception.py", "core/calendar.py",
           "features.py", "stats.py", "xmhw.py", "xrlite/__init__.py",
           "xrlite/adapt.py", "xrlite/alloc.py", "xrlite/dataarray.py",
           "xrlite/export.py", "xrlite/netcdf.py", "xrlite/timeutils.py"]
@@ -57,6 +57,9 @@ PORTED = {
     "stream.py": {"stream_threshold", "stream_detect", "stream_block_average",
                   "stream_rank", "stream_run", "_cats_kernel", "_kcache_file"},
     "__main__.py": {"main", "_warmup", "build_parser"},
+    # runavg_circular_np wraps a window wider than the axis (12 monthly
+    # rows), which the JAX package's copy cuts short
+    "core/point.py": {"runavg_circular_np"},
     # the torch mesh: CELL_AXIS and pad_cells stay copies
     "parallel/mesh.py": {"cell_mesh", "cell_sharding", "replicated",
                          "make_cell_array"},

@@ -41,9 +41,12 @@ __all__ = ["point_clim", "point_detect", "point_interpolate_na",
 def runavg_circular_np(x, w):
     """Periodic centered running mean over axis 0 (NaN-propagating) —
     host twin of core.clim.runavg_circular (reference:
-    identify.py:154-181)."""
+    identify.py:154-181). The padding wraps row by row (an index modulo
+    the row count), so a window wider than the axis (31 days over 12
+    monthly rows) wraps round it more than once, as torch.roll does."""
     half = (w - 1) // 2
-    xp = np.concatenate([x[-half:], x, x[:half]], axis=0)
+    n = x.shape[0]
+    xp = x[np.arange(-half, n + half) % n]
     from numpy.lib.stride_tricks import sliding_window_view
 
     win = sliding_window_view(xp, w, axis=0)

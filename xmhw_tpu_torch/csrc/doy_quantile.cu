@@ -26,7 +26,7 @@
 //    c ^ (z & 31): the row stores and the column reads below are both
 //    free of bank conflicts. The tile is ny*rmax*128 bytes: 42 KB at a
 //    30-year climatology, 56 KB at 40 years, 227 KB (the most a block may
-//    have) at Z = 1,816, the largest pool the wrapper takes.
+//    have) at Z = 1,816, the largest pool staged (longer ones: below).
 // 2. One warp per pool. Lane l holds keys z = l + 32 i in registers
 //    (KPT = ceil(Z / 32) per lane; template instances cover every Z up to
 //    1,816). One pass gives the count, smallest and largest valid key
@@ -53,6 +53,20 @@
 // spill at 11 and 14 keys a lane (30- and 40-year pools), so 4 blocks,
 // 32 warps, fit on an SM there; tools/torch_doy_variants.py prints the
 // figures of every instance and the split of the time.
+//
+// Pools past the tile (Z > 1,816 rows: ERSST v5's 171 monthly years at
+// w = 5, or daily records at w >= 11 over 80 years) take a second kernel,
+// doy_quantile_long_kernel, with the same block (one doy, 32 cells, 8
+// warps), the same common-prefix skip and the same radix select, but
+// nothing staged: lane l of every warp owns cell c0 + l and warp w the
+// pool's years w, w + 8, ...; each pass reads those rows from the series
+// again (each a coalesced 128-byte row of the block's cells) and the 8
+// warps' counts meet in shared memory. Blocks run column by column (all
+// doys of 32 cells, then the next 32), so the blocks in flight reread
+// the rows of a few columns (T x 128 B each: 4 MB at 85 daily years),
+// which stay in the 50 MB L2, and a pass costs L2 reads, not DRAM. No
+// scratch, no limit on Z; two passes more than the tile kernel's radix
+// steps, each over the whole pool.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +78,9 @@ constexpr int kCells = 32;     // cells per block: one 128-byte row
 constexpr int kWarps = 8;      // warps per block
 constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr uint32_t kNone = 0xFFFFFFFFu;  // key of a missing value
+// the most rows a pool may have to be staged in the shared tile: 32
+// cells of 4-byte keys a row in the 232,448 B a block may have
+constexpr int kTileRows = 232448 / (kCells * 4);
 
 __device__ __forceinline__ uint32_t float_key(float x) {
     const uint32_t b = __float_as_uint(x);
@@ -228,6 +245,147 @@ doy_quantile_kernel(const float* __restrict__ ts,
     }
 }
 
+// Pools past the tile: lane l owns cell c0 + l, warp w the pool's years
+// w, w + kWarps, ...; every pass walks the warp's rows in the series and
+// calls f on each value of the lane's cell (NaN for a lane past C).
+template <class F>
+__device__ __forceinline__ void walk_pool(const float* __restrict__ col,
+                                          const int* __restrict__ st,
+                                          const int* __restrict__ ln,
+                                          int C, int ny, int warp,
+                                          bool live, F f) {
+    for (int y = warp; y < ny; y += kWarps) {
+        const float* p = col + (size_t)__ldg(st + y) * C;
+        const int len = __ldg(ln + y);
+#pragma unroll 8
+        for (int r = 0; r < len; ++r)
+            f(live ? __ldg(p + (size_t)r * C) : NAN);
+    }
+}
+
+__device__ __forceinline__ uint32_t key_of(float v) {
+    return isfinite(v) ? float_key(v) : kNone;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+doy_quantile_long_kernel(const float* __restrict__ ts,
+                         const int* __restrict__ starts,
+                         const int* __restrict__ lens, float* __restrict__ th,
+                         float* __restrict__ se, int C, int ndoy, int ny,
+                         int pct_int, float q) {
+    __shared__ double s_sum[kWarps][32];
+    __shared__ uint32_t s_lo[kWarps][32], s_hi[kWarps][32];
+    __shared__ uint32_t s_hik[kWarps][32];
+    __shared__ int s_cnt[2][kWarps][32];
+    // the doys of one 32-cell column run next to each other: the blocks
+    // in flight reread the series rows of a few columns, which stay in
+    // L2, not the rows of a few doys across every column, which do not
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int d = blockIdx.x % ndoy;
+    const int c = blockIdx.x / ndoy * kCells + lane;
+    const bool live = c < C;
+    const float* col = ts + (live ? c : 0);
+    const int* st = starts + (size_t)d * ny;
+    const int* ln = lens + (size_t)d * ny;
+
+    // 1. count, smallest and largest key, float64 sum of this warp's rows;
+    // the warps' parts are summed in warp order, the same in every warp
+    int n = 0;
+    uint32_t kmin = kNone, kmax = 0u;
+    double sum = 0.0;
+    walk_pool(col, st, ln, C, ny, warp, live, [&](float v) {
+        const uint32_t key = key_of(v);
+        if (key != kNone) {
+            ++n;
+            kmin = min(kmin, key);
+            kmax = max(kmax, key);
+            sum += (double)v;
+        }
+    });
+    s_cnt[0][warp][lane] = n;
+    s_lo[warp][lane] = kmin;
+    s_hi[warp][lane] = kmax;
+    s_sum[warp][lane] = sum;
+    __syncthreads();  // every warp's part of the pool's figures
+    n = 0;
+    kmin = kNone;
+    kmax = 0u;
+    sum = 0.0;
+    for (int w = 0; w < kWarps; ++w) {
+        n += s_cnt[0][w][lane];
+        kmin = min(kmin, s_lo[w][lane]);
+        kmax = max(kmax, s_hi[w][lane]);
+        sum += s_sum[w][lane];
+    }
+
+    // rank k and fraction of position q*(n-1), as the tile kernel
+    int k = 0;
+    float frac = 0.0f;
+    if (n > 0 && pct_int >= 0) {
+        const int num = (n - 1) * pct_int;
+        k = num / 100;
+        frac = __fmul_rn((float)(num - k * 100), 0.01f);
+    } else if (n > 0) {
+        const float pos = __fmul_rn(q, __fsub_rn((float)n, 1.0f));
+        k = max((int)floorf(pos), 0);
+        frac = __fsub_rn(pos, (float)k);
+    }
+
+    // 2. the common-prefix skip, per cell; the block steps from the
+    // highest bit any of its cells needs (the same in every warp)
+    const uint32_t diff = kmin ^ kmax;
+    const int b = (n > 0 && diff) ? 31 - __clz((int)diff) : -1;
+    uint32_t lo = b < 0 ? kmin : kmin & ~((2u << b) - 1u);
+    const int top = __reduce_max_sync(kAll, b + 1) - 1;
+
+    // 3. MSB-first radix select, one pass over the rows a step: the
+    // largest lo with #(key < lo) <= k. Missing keys (kNone) are below no
+    // candidate. Counts alternate between two buffers, so that one
+    // barrier a step keeps a warp from overwriting counts still read.
+    int buf = 1;
+    for (int s = top; s >= 0; --s, buf ^= 1) {
+        const uint32_t cand = lo | (1u << s);
+        int cnt = 0;
+        walk_pool(col, st, ln, C, ny, warp, live,
+                  [&](float v) { cnt += key_of(v) < cand; });
+        s_cnt[buf][warp][lane] = cnt;
+        __syncthreads();  // this step's counts
+        int below = 0;
+        for (int w = 0; w < kWarps; ++w) below += s_cnt[buf][w][lane];
+        if (s <= b && below <= k) lo = cand;
+    }
+
+    // (k+1)-th order statistic: vk again when ties span position k+1,
+    // else the smallest key strictly greater than lo
+    int le = 0;
+    uint32_t hik = kNone;
+    walk_pool(col, st, ln, C, ny, warp, live, [&](float v) {
+        const uint32_t key = key_of(v);
+        le += key <= lo;
+        if (key > lo) hik = min(hik, key);
+    });
+    s_cnt[buf][warp][lane] = le;
+    s_hik[warp][lane] = hik;
+    __syncthreads();  // every warp's le and hik
+    if (warp != 0 || !live) return;
+    le = 0;
+    for (int w = 0; w < kWarps; ++w) {
+        le += s_cnt[buf][w][lane];
+        hik = min(hik, s_hik[w][lane]);
+    }
+    const size_t out = (size_t)d * C + c;
+    if (n == 0) {
+        th[out] = se[out] = NAN;
+        return;
+    }
+    const float vk = key_float(lo);
+    const float vk1 = (le > k + 1) ? vk : (hik != kNone ? key_float(hik) : vk);
+    th[out] = __double2float_rn(__dadd_rn(
+        (double)vk, __dmul_rn((double)frac, (double)__fsub_rn(vk1, vk))));
+    se[out] = __double2float_rn(__ddiv_rn(sum, (double)n));
+}
+
 struct Args {
     const float* ts;
     const int* starts;
@@ -261,13 +419,22 @@ int dispatch(int kpt, const Args& a) {
     return (int)cudaErrorInvalidValue;
 }
 
+int launch_long(const Args& a) {
+    const unsigned blocks = (unsigned)((a.C + kCells - 1) / kCells) * a.ndoy;
+    doy_quantile_long_kernel<<<blocks, kWarps * 32, 0, a.stream>>>(
+        a.ts, a.starts, a.lens, a.th, a.se, a.C, a.ndoy, a.ny, a.pct_int,
+        a.q);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ts: (Tp, C) float32 with every starts[i] + lens[i] <= Tp;
 // starts/lens: (ndoy * ny,) int32; th/se: (ndoy, C) float32.
 // pct_int >= 0 selects the exact integer rank for an integral percentile,
 // otherwise q = pctile / 100 (rounded to float32) is used. Pools of up to
-// ny * rmax = 1,816 rows (the shared tile's limit).
+// ny * rmax = 1,816 rows are staged in the shared tile; longer ones take
+// doy_quantile_long_kernel, which has no limit of its own.
 extern "C" int xmhw_doy_quantile(const float* ts, const int* starts,
                                  const int* lens, float* th, float* se,
                                  int C, int ndoy, int ny, int rmax,
@@ -275,6 +442,7 @@ extern "C" int xmhw_doy_quantile(const float* ts, const int* starts,
     if (C == 0 || ndoy == 0) return 0;
     const Args a{ts, starts, lens, th, se, C, ndoy, ny, rmax, pct_int, q,
                  (cudaStream_t)stream};
+    if ((long long)ny * rmax > kTileRows) return launch_long(a);
     const int kpt = (ny * rmax + 31) / 32;
     return dispatch<2, 4, 8, 11, 14, 16, 20, 24, 32, 40, 48, 57>(kpt, a);
 }

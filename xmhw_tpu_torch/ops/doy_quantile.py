@@ -16,10 +16,17 @@ import torch
 from ..core.clim import pooled_clim
 from . import _build
 
-# a block of the kernel stages the pools of 32 cells (ny*rmax keys each)
-# in shared memory; 227 KB is the most a block may use on the H100
-_SMEM_LIMIT = 232_448
-_CELLS_PER_BLOCK = 32
+# A block of the kernel stages the pools of 32 cells (ny*rmax 4-byte keys
+# each) in shared memory, 232,448 B at most on the H100: pools of up to
+# TILE_ROWS rows. Longer pools take the kernel's second route, which reads
+# them from the series pass by pass (csrc/doy_quantile.cu, kTileRows).
+TILE_ROWS = 232_448 // (32 * 4)
+
+
+def route(ny, rmax):
+    """The kernel's route for pools of ny * rmax rows: "tile" (staged in
+    shared memory) or "long" (read from the series in every pass)."""
+    return "tile" if ny * rmax <= TILE_ROWS else "long"
 
 
 def gather_pool(ts_padded, starts, lens, ndoy, ny, rmax):
@@ -49,7 +56,9 @@ def doy_quantile(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
     ts_padded: (Tp, C) float32 with every ``starts[i] + lens[i] <= Tp``
     (the series plus ``rmax`` trailing NaN rows); starts/lens: flat
     (ndoy*ny,) int32. Returns (thresh, seas), each (ndoy, C), NaN where
-    a pool is empty. CPU tensors run the plain version.
+    a pool is empty. Any pool length: pools of up to TILE_ROWS rows are
+    staged in shared memory, longer ones read from the series
+    (:func:`route`). CPU tensors run the plain version.
     """
     if not ts_padded.is_cuda:
         return doy_quantile_plain(ts_padded, starts, lens, ndoy, ny, rmax,
@@ -64,10 +73,6 @@ def doy_quantile(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
                 or t.numel() != ndoy * ny or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous ({ndoy * ny},) "
                              f"int32 on {ts_padded.device}")
-    smem = ny * rmax * _CELLS_PER_BLOCK * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"pool of {ny} years x {rmax} rows needs {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
     C = ts_padded.shape[1]
     th = torch.empty((ndoy, C), dtype=torch.float32, device=ts_padded.device)
     se = torch.empty_like(th)
@@ -80,7 +85,14 @@ def doy_quantile(ts_padded, starts, lens, ndoy, ny, rmax, pctile=90):
             _build.stream_of(ts_padded))
     _build.check(err, "doy_quantile")
     doy_quantile.launches += 1
+    doy_quantile.by_route[route(ny, rmax)] += 1
     return th, se
 
 
-doy_quantile.launches = 0
+def reset_launches():
+    """Zero :func:`doy_quantile`'s launch count and its count by route."""
+    doy_quantile.launches = 0
+    doy_quantile.by_route = {"tile": 0, "long": 0}
+
+
+reset_launches()
