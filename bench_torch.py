@@ -43,7 +43,9 @@ Cells (``CELLS``; the first five take one card):
   wait per block, as the mesh path of ``run_fused`` issues them.
 
 bench.py's global_streamed is left out: it reads and writes NetCDF
-through h5py, which the H100 machine does not have.
+through h5py, which the H100 machine does not have; there the streamed
+path runs through the numpy stand-in (tools/h5py_standin, chip_smoke.py),
+whose raw files would misstate HDF5's cost.
 
 Every cell reports ``cells_per_sec`` (ocean cells over the warm wall,
 host clock ending in ``torch.cuda.synchronize()``); the per-layer
@@ -1093,7 +1095,8 @@ CELLS = {  # name -> (cards, function)
 ONE_CARD = [k for k, (n, _) in CELLS.items() if n == 1]
 LEFT_OUT = {"global_streamed": (
     "bench.py's file-to-file config reads and writes NetCDF through h5py, "
-    "which the H100 machine does not have")}
+    "which the H100 machine does not have; its numpy stand-in's raw files "
+    "would misstate HDF5's cost")}
 
 
 # ------------------------------------------------------------------ main

@@ -62,8 +62,10 @@ Phases, one or more lines each:
    outputs must equal the one-process step bit for bit and the plain
    version's on its shard within the kernel bars; the ranks' all_reduced
    event total must equal the one-process step's. The backend, the devices and
-   the walls of each rank's step and of the one-process step. The streamed
-   two-process tool needs h5py: where it is missing, one line says so;
+   the walls of each rank's step and of the one-process step. Then
+   tools/torch_multiproc_stream.py on the card: two ranks each stream_run
+   their own latitude band of one file, rank 0 merges the band files
+   (merge_grid_band_files) and holds them byte-equal to one process's run;
 10. stream steps: the device steps only the streamed stages run
    (stream_block_average's float64 event and day statistics of one stripe,
    stream_rank's batched ranks), on the slice's events, on the card
@@ -91,21 +93,40 @@ Phases, one or more lines each:
 12. cli: ``python -m xmhw_tpu_torch warmup`` (in process): the kernels and
    the standard shapes on the card; every kernel's launch counter must
    advance;
-13. stream: the streamed pipelines file to file, which read and write
-   NetCDF through h5py. Where h5py is installed: a 160 x 64 grid (10,240
+13. stream: the streamed pipelines file to file. A 160 x 64 grid (10,240
    cells, ~20 % land, 40 daily years, float32, ~600 MB) through stream_run
    (3 stripes) and through the staged chain stream_threshold ->
    stream_detect -> stream_block_average -> stream_rank, which must agree,
    and whose climatology and events must equal one in-memory run_fused
-   over the grid; launch counters must advance in both runs; then the CLI's
-   ``run`` on a small grid in a subprocess. Where h5py is missing, one line
-   says that the phase did not run and why.
+   over the grid; kernels 1-3 must launch in both runs; the CLI's ``run``
+   on a small grid in a subprocess, which must write its files. Then
+   stream_detect stopped after its first stripe and resumed: the file must
+   equal a fresh run's, and the resumed call must launch the kernels of
+   the remaining stripes only. Then stream_run with maxPadLength=2 over a
+   48 x 64 grid with NaN gaps (gap filling on the card from the read-ahead
+   thread), once on the card and once over the mesh [cuda, cuda]: files
+   byte-equal, and equal to one in-memory run_fused over the gaps filled
+   on the main thread. Then the production width: a band of 24
+   rows x 1,440 longitudes of the 0.25-degree grid (34,560 cells, 30 %
+   land, 40 daily years, 2.0 GB) through stream_run alone, 8 stripes of 3
+   rows, whose climatology and events must equal one in-memory run_fused
+   over its ocean cells; its wall per stripe, cells/s, the device-step
+   share (CUDA events around each stripe's run_fused over the wall) and
+   the peak host RSS.
+
+The streamed files go through h5py where it is installed. Where it is not
+(the H100 machine), the script puts the numpy stand-in tools/h5py_standin
+first on sys.path and on the PYTHONPATH of every subprocess it starts, and
+says so in its first ``io:`` line: the files are then raw arrays behind an
+HDF5 signature, and tests/test_torch_h5py_standin.py holds them against
+real h5py's on the CPU.
 
 Then a JSON line with one entry per kernel (``launches``: in the slice;
 kernel 1's ``long_records``: its rows at the options phase's long
 records;
 ``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0];
-``procs_launches``: each rank's in the procs phase; the event scan's
+``procs_launches``: each rank's in the procs phase; ``stream_launches``:
+in the stream phase's production-width band; the event scan's
 ``plain_f64_ms``: its plain version in float64), and last the line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a visible CUDA device.
@@ -113,8 +134,10 @@ does a machine without a visible CUDA device.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -140,6 +163,11 @@ NO_LIBRARY = "none: no single PyTorch call computes it"
 # the card and in float64 on the host (rtol = atol); counts and ranks exact
 STATS_TOL = {"day": 1e-9, "event": 1e-5}
 STREAM_GRID = (160, 64)  # 10,240 cells; the default stripe is 71 rows
+# the production width: 24 rows of the 0.25-degree grid (1,440 longitudes),
+# 30 % land; at 40 daily years the default stripe is 3 rows (~256 MB)
+BAND = (24, 1440)
+BAND_LAND = 0.3
+STANDIN = Path(__file__).resolve().parent / "tools" / "h5py_standin"
 DAY_STATS = ("ts_mean", "ts_max", "ts_min")
 RANKED = ("intensity_max", "duration")
 
@@ -266,6 +294,35 @@ def bound(moved, ops):
     once) and to do ``ops`` operations, whichever is larger."""
     b, o = moved / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def choose_h5py():
+    """The library the streamed files go through: h5py where it is
+    installed; else the numpy stand-in, first on sys.path and on the
+    PYTHONPATH of every subprocess started later. Logs which."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        log(f"io: h5py {h5py.__version__} is installed: the streamed files "
+            f"are HDF5, read and written through it ({h5py.__file__})")
+        return
+    if not (STANDIN / "h5py" / "__init__.py").is_file():
+        raise FileNotFoundError(f"no h5py, and no stand-in at {STANDIN}")
+    sys.path.insert(0, str(STANDIN))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(STANDIN)] + [p for p in os.environ.get("PYTHONPATH", "")
+                          .split(os.pathsep) if p])
+    import h5py
+
+    if Path(h5py.__file__).resolve().parent.parent != STANDIN:
+        raise AssertionError(f"import h5py found {h5py.__file__}")
+    log("io: no h5py on this machine: the streamed files go through the "
+        "numpy stand-in tools/h5py_standin (raw arrays behind an HDF5 "
+        "signature, not HDF5; first on sys.path and on every subprocess's "
+        "PYTHONPATH); tests/test_torch_h5py_standin.py holds its files "
+        "against real h5py's on the CPU")
 
 
 def phase_device():
@@ -1223,10 +1280,10 @@ def phase_procs(card, years=40, cells=CELLS, k=K):
     RLE's in its detect mode), its shard equals the one-process step bit
     for bit (checked by the tool), its kernels' outputs agree with the
     plain version's on its shard at TOL (counts and positions exact), and
-    the all_reduced total equals the one-process step's. Returns each
-    kernel's launches per rank."""
-    import importlib.util
-
+    the all_reduced total equals the one-process step's. Then the streamed
+    two-process tool on the card (banded stream_run, merged files
+    byte-equal to one process's). Returns each kernel's launches per rank
+    of the dryrun."""
     import torch
 
     root = Path(__file__).resolve().parent
@@ -1274,22 +1331,30 @@ def phase_procs(card, years=40, cells=CELLS, k=K):
     log(f"procs: two processes, {torch.cuda.device_count()} CUDA device(s) "
         f"visible, in {wall:.1f} s (start-up, data and checks included)  "
         f"[{card}]")
-    if importlib.util.find_spec("h5py") is None:
-        log("procs: tools/torch_multiproc_stream.py did not run: no h5py on "
-            "this machine, and the streamed functions read and write NetCDF "
-            "through it; tests/test_torch_multiproc.py runs it on the CPU")
-    else:
-        r = subprocess.run(
-            [sys.executable, str(root / "tools" / "torch_multiproc_stream.py"),
-             "--device", DEV], capture_output=True, text=True, timeout=600,
-            cwd=root)
-        if r.returncode != 0:
-            raise AssertionError(f"multi-process stream failed:\n"
-                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        ok = [ln for ln in r.stdout.splitlines() if ln.startswith("rank 0")]
-        log(f"procs: {ok[-1]}  [{card}]")
+    procs_stream(card)
     return {name: [x["launches"][name] for x in recs]
             for name in ("doy_quantile", "rle", "detect_scan")}
+
+
+def procs_stream(card):
+    """tools/torch_multiproc_stream.py on the card: two ranks each run
+    stream_run over their own latitude band, rank 0 merges the band files
+    and holds them byte-equal to one process's run."""
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(root / "tools" / "torch_multiproc_stream.py"),
+         "--device", DEV, "--timeout", "400"], capture_output=True,
+        text=True, timeout=450, cwd=root)
+    wall = time.perf_counter() - t
+    ok = [ln for ln in r.stdout.splitlines() if ln.startswith("rank 0: OK")]
+    if (r.returncode != 0 or not ok
+            or "torch multiproc stream: PASS" not in r.stdout):
+        raise AssertionError(f"multi-process stream failed (exit "
+                             f"{r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    log(f"procs: tools/torch_multiproc_stream.py --device {DEV} in "
+        f"{wall:.1f} s: {ok[-1]}  [{card}]")
 
 
 def fused_stats_agree(extras, stats, ocean, ts, years, bins, kmax):
@@ -1745,18 +1810,21 @@ def phase_cli(card):
 
 
 def phase_stream(card):
-    """The streamed pipelines file to file, where h5py is installed."""
-    import importlib.util
+    """The streamed pipelines file to file (through h5py or its stand-in:
+    choose_h5py): the grid through stream_run, the staged chain and the
+    CLI, the resume, gap filling on the read-ahead thread with and without
+    a mesh, then the production-width band. Returns the band's kernel
+    launches."""
     import tempfile
 
-    if importlib.util.find_spec("h5py") is None:
-        log("stream: did not run: no h5py on this machine, and the streamed "
-            "functions read and write NetCDF through it; "
-            "tests/test_torch_stream*.py carry their parity with xmhw_tpu "
-            "on the CPU")
-        return
     with tempfile.TemporaryDirectory(prefix="xmhw_stream_") as d:
-        stream_files(card, Path(d), DEV, *STREAM_GRID, daily(T0, T1))
+        src, clim = stream_files(card, Path(d), DEV, *STREAM_GRID,
+                                 daily(T0, T1))
+        stream_resume(card, Path(d), DEV, src, clim)
+    with tempfile.TemporaryDirectory(prefix="xmhw_gaps_") as d:
+        stream_gaps(card, Path(d), DEV)
+    with tempfile.TemporaryDirectory(prefix="xmhw_band_") as d:
+        return stream_band(card, Path(d), DEV)
 
 
 def exact(part, k):
@@ -1801,16 +1869,58 @@ def files_agree(a, b, part):
     return worst
 
 
-def stream_files(card, d, dev, nlat, nlon, t):
-    """stream_run and the staged chain over one grid file; their files
-    must agree, and stream_run's climatology and events must equal one
-    in-memory run_fused over the grid. Then the CLI's ``run``."""
+def equal_to_fused(clim_path, mhw_path, ts, ocean, t, dev, what):
+    """A streamed run's climatology and events against one in-memory
+    run_fused over the ocean cells ``ts`` ((T, ocean) float32): thresholds
+    and seasonal means equal, every event of the in-memory tables in the
+    file (K may be larger there), every table variable but the times
+    equal. Returns the number of events."""
     import xmhw_tpu_torch as xt
     from xmhw_tpu_torch.core.calendar import compute_doy
     from xmhw_tpu_torch.core.features_scan import TABLE_VARS
     from xmhw_tpu_torch.core.pipeline import run_fused
+    from xmhw_tpu_torch.xrlite import TimeIndex
+
+    clim = xt.open_dataset(clim_path)
+    mhw = xt.open_dataset(mhw_path)
+    doy, _ = compute_doy(TimeIndex(t))
+    th, se, tables, nev, _ = run_fused(ts, doy, (doy - 1).astype(np.int32),
+                                       device=dev)
+    if tuple(clim["thresh"].shape[1:]) != ocean.shape:
+        raise AssertionError(f"{what}: grid {clim['thresh'].shape[1:]} != "
+                             f"{ocean.shape}")
+    flat = ocean.reshape(-1)
+    for k, v in (("thresh", th), ("seas", se)):
+        got = np.asarray(clim[k].data).reshape(-1, flat.size)[:, flat]
+        if not np.array_equal(got, v, equal_nan=True):
+            raise AssertionError(f"{what} {k} != in-memory run_fused")
+    K = mhw["event"].sizes["ev"]
+
+    def cells(k):
+        return np.asarray(mhw[k].data).reshape(K, -1)[:, flat]
+
+    if tables["event"].shape[0] > K or not np.array_equal(
+            np.isfinite(cells("duration")).sum(axis=0), nev):
+        raise AssertionError(f"{what} event counts != in-memory run_fused")
+    for k in TABLE_VARS:
+        if k.startswith("time_"):
+            continue
+        a = np.asarray(cells(k), np.float64)
+        b = np.full(a.shape, np.nan)
+        b[:tables[k].shape[0]] = tables[k]
+        if not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{what} {k} != in-memory run_fused")
+    return int(nev.sum())
+
+
+def stream_files(card, d, dev, nlat, nlon, t):
+    """stream_run and the staged chain over one grid file; their files
+    must agree, and stream_run's climatology and events must equal one
+    in-memory run_fused over the grid. Then the CLI's ``run``. Returns the
+    input file and stream_run's climatology file."""
+    import xmhw_tpu_torch as xt
     from xmhw_tpu_torch.stream import _auto_stripe
-    from xmhw_tpu_torch.xrlite import Dataset, TimeIndex
+    from xmhw_tpu_torch.xrlite import Dataset
 
     n = nlat * nlon
     ds = Dataset()
@@ -1852,31 +1962,14 @@ def stream_files(card, d, dev, nlat, nlon, t):
             f"  [{card}]")
     worst = max(files_agree(runs["stream_run"][k], runs["staged"][k], k)
                 for k in runs["staged"])
-    clim = xt.open_dataset(runs["stream_run"]["clim"])
-    mhw = xt.open_dataset(runs["stream_run"]["mhw"])
-    ocean = ~np.isnan(ds["sst"].data).all(axis=0)
-    doy, _ = compute_doy(TimeIndex(t))
-    th, se, tables, nev, _ = run_fused(
-        np.ascontiguousarray(ds["sst"].data[:, ocean]), doy,
-        (doy - 1).astype(np.int32), device=dev)
-    for k, v in (("thresh", th), ("seas", se)):
-        if not np.array_equal(clim[k].data[:, ocean], v, equal_nan=True):
-            raise AssertionError(f"stream {k} != in-memory run_fused")
-    K = mhw["event"].sizes["ev"]
-    if tables["event"].shape[0] > K or not np.array_equal(
-            np.isfinite(mhw["duration"].data[:, ocean]).sum(axis=0), nev):
-        raise AssertionError("stream event counts != in-memory run_fused")
-    for k in TABLE_VARS:
-        if k.startswith("time_"):
-            continue
-        a = np.asarray(mhw[k].data[:, ocean], np.float64)
-        b = np.full(a.shape, np.nan)
-        b[:tables[k].shape[0]] = tables[k]
-        if not np.array_equal(a, b, equal_nan=True):
-            raise AssertionError(f"stream {k} != in-memory run_fused")
+    data = np.asarray(ds["sst"].data).reshape(len(t), -1)
+    ocean = ~np.isnan(data).all(axis=0)
+    nev = equal_to_fused(runs["stream_run"]["clim"], runs["stream_run"]["mhw"],
+                         np.ascontiguousarray(data[:, ocean]),
+                         ocean.reshape(nlat, nlon), t, dev, "stream")
     log(f"stream: stream_run and the staged chain agree (max |diff| "
-        f"{worst:.3g}); clim and {int(nev.sum())} events equal one "
-        f"in-memory run_fused  [{card}]")
+        f"{worst:.3g}); clim and {nev} events equal one in-memory run_fused"
+        f"  [{card}]")
     small = Dataset()
     small["sst"] = grid(t, 8, 8, seed=6, land=8)
     xt.save_dataset(small, str(d / "small.nc"))
@@ -1886,11 +1979,377 @@ def stream_files(card, d, dev, nlat, nlon, t):
          str(d / "small.nc"), "sst", c[0], c[1], "--block", c[2], "--rank",
          c[3]], capture_output=True, text=True, timeout=600,
         cwd=Path(__file__).resolve().parent)
-    if r.returncode != 0 or not all(Path(f).exists() for f in c):
+    written = [ln.split(": ", 1)[1] for ln in r.stdout.splitlines()
+               if ": " in ln]
+    if r.returncode != 0 or sorted(written) != sorted(
+            c + [str(d / "cli_r_return.nc")]) or not all(
+                Path(f).exists() for f in written):
         raise AssertionError(f"python -m xmhw_tpu_torch run failed: "
-                             f"{r.stderr[-2000:]}")
-    log(f"stream: python -m xmhw_tpu_torch run on 64 cells wrote "
-        f"{len(r.stdout.splitlines())} files  [{card}]")
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    log(f"stream: python -m xmhw_tpu_torch --device {dev} run on 64 cells "
+        f"wrote {', '.join(Path(f).name for f in written)}  [{card}]")
+    return src, runs["stream_run"]["clim"]
+
+
+def stop_after_first_stripe(setattr):
+    """In-process stop of a streamed run: ``setattr(_WriteBehind,
+    "submit", ...)`` makes the second write-behind job raise instead of
+    writing, so the run ends with its first stripe and that stripe's
+    watermark on disk. ``setattr`` is pytest's ``monkeypatch.setattr``, or
+    the builtin where the caller restores ``_WriteBehind.submit``."""
+    from xmhw_tpu_torch import stream as tst
+
+    real, jobs = tst._WriteBehind.submit, []
+
+    def submit(wb, fn):
+        jobs.append(fn)
+        if len(jobs) == 2:
+            def fn():
+                raise RuntimeError("stopped after the first stripe")
+        real(wb, fn)
+
+    setattr(tst._WriteBehind, "submit", submit)
+
+
+def stream_resume(card, d, dev, src, clim):
+    """stream_detect stopped after its first stripe, then resumed with
+    resume=True: the file equals a fresh run's bit for bit, and the
+    resumed call launches what the fresh run launched for the remaining
+    stripes. The K cache is off for the three runs, as for a first run
+    (a stopped run writes none)."""
+    import h5py
+
+    import xmhw_tpu_torch as xt
+    from xmhw_tpu_torch import stream as tst
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_multiproc_stream import assert_files_equal
+
+    real = tst.run_detect
+    per_call = []
+
+    def counted(*a, **k):
+        before = read_launches()
+        out = real(*a, **k)
+        after = read_launches()
+        per_call.append({n: after[n] - before[n] for n in after})
+        return out
+
+    fresh, got = str(d / "fresh_m.nc"), str(d / "resumed_m.nc")
+    cache = os.environ.get("XMHW_COMPILE_CACHE")
+    os.environ["XMHW_COMPILE_CACHE"] = "0"
+    tst.run_detect = counted
+    try:
+        xt.stream_detect(src, "sst", clim, fresh, device=dev)
+        stripes = list(per_call)
+        submit = tst._WriteBehind.submit
+        stop_after_first_stripe(setattr)
+        try:
+            xt.stream_detect(src, "sst", clim, got, device=dev)
+        except RuntimeError as e:
+            if "first stripe" not in str(e):
+                raise
+        else:
+            raise AssertionError("the stopped run did not stop")
+        finally:
+            tst._WriteBehind.submit = submit
+        gc.collect()  # the stopped run's open files
+        with h5py.File(got, "r") as f:
+            mark = json.loads(f.attrs["xmhw_resume"])
+        del per_call[:]
+        reset_launches()
+        t0 = time.perf_counter()
+        xt.stream_detect(src, "sst", clim, got, device=dev, resume=True)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        tst.run_detect = real
+        if cache is None:
+            os.environ.pop("XMHW_COMPILE_CACHE")
+        else:
+            os.environ["XMHW_COMPILE_CACHE"] = cache
+    want = {n: sum(c[n] for c in stripes[1:]) for n in launches}
+    if per_call != stripes[1:] or launches != want or not launches["rle"]:
+        raise AssertionError(f"resumed launches {per_call} (total "
+                             f"{launches}): want the fresh run's for its "
+                             f"stripes 2-{len(stripes)}: {stripes[1:]}")
+    assert_files_equal(got, fresh)
+    with h5py.File(got, "r") as f:
+        if "xmhw_resume" in f.attrs:
+            raise AssertionError("the resumed run left its watermark")
+    log(f"stream: stream_detect stopped after its first stripe (watermark "
+        f"at row {mark['hi']} of {STREAM_GRID[0]}), resumed in {wall:.3f} "
+        f"s: {len(per_call)} of {len(stripes)} stripes run, launches "
+        f"{launches} (the fresh run's for those stripes); the file equals a "
+        f"fresh run's byte for byte  [{card}]")
+
+
+def stream_gaps(card, d, dev, nlat=48, nlon=64, rows=16):
+    """stream_run with maxPadLength=2 over a grid with NaN gaps (gappy),
+    three stripes: each stripe's gaps are filled on the card by the
+    read-ahead thread while the main thread runs the previous stripe's
+    step. Once on ``dev`` and once over the mesh [dev, dev]: the files
+    must be equal byte for byte, and the climatology and events equal one
+    in-memory run_fused over the gaps filled on the main thread."""
+    import torch
+
+    import xmhw_tpu_torch as xt
+    from xmhw_tpu_torch.api import _interpolate_na
+    from xmhw_tpu_torch.parallel import cell_mesh
+    from xmhw_tpu_torch.xrlite import Dataset
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from torch_multiproc_stream import assert_files_equal
+
+    t = daily(T0, T1)
+    ds = Dataset()
+    ds["sst"] = gappy(grid(t, nlat, nlon, seed=7, land=nlat * nlon // 5))
+    src = str(d / "gaps.nc")
+    xt.save_dataset(ds, src)
+    one = torch.device(dev)
+    outs = {}
+    for how, kw in (("one device", {"device": one}),
+                    ("mesh", {"mesh": cell_mesh([one, one])})):
+        p = {k: str(d / f"gaps_{how[:4]}_{k}.nc") for k in ("clim", "mhw")}
+        reset_launches()
+        t0 = time.perf_counter()
+        xt.stream_run(src, "sst", p["clim"], p["mhw"], maxPadLength=2,
+                      stripe=rows, **kw)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the gap run "
+                                 f"({how}): {missing}")
+        outs[how] = (p, wall, launches)
+    for k in ("clim", "mhw"):
+        assert_files_equal(outs["mesh"][0][k], outs["one device"][0][k])
+    data = np.asarray(ds["sst"].data).reshape(len(t), -1)
+    ocean = ~np.isnan(data).all(axis=0)
+    filled = _interpolate_na(np.ascontiguousarray(data[:, ocean]), 2, one)
+    nev = equal_to_fused(outs["one device"][0]["clim"],
+                         outs["one device"][0]["mhw"], filled,
+                         ocean.reshape(nlat, nlon), t, dev, "stream gaps")
+    log(f"stream: maxPadLength=2 over {nlat * nlon} cells with NaN gaps, "
+        f"{-(-nlat // rows)} stripes: one device {outs['one device'][1]:.3f}"
+        f" s, launches {outs['one device'][2]}; mesh [{one}, {one}] "
+        f"{outs['mesh'][1]:.3f} s, launches {outs['mesh'][2]}; files "
+        f"byte-equal; clim and {nev} events equal one in-memory run_fused "
+        f"over the gaps filled on the main thread  [{card}]")
+
+
+def synth_card(T, n, seed, land):
+    """``synth``'s recipe made on the card (the band's 2 GB would take
+    numpy tens of seconds): (T, n) float32 on the host."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cs = torch.zeros((T + 15, n), dtype=torch.float64, device="cuda")
+    torch.cumsum(torch.randn((T + 14, n), generator=g, dtype=torch.float64,
+                             device="cuda"), dim=0, out=cs[1:])
+    day = torch.arange(T, dtype=torch.float64, device="cuda")[:, None]
+    ts = (15 + 3 * torch.sin(2 * np.pi * day / 365.25)
+          + 2.5 * (cs[15:15 + T] - cs[:T]) / 15.0).float()
+    del cs
+    ts[:, torch.randperm(n, generator=g, device="cuda")[:land]] = float("nan")
+    out = ts.cpu().numpy()
+    del ts
+    torch.cuda.empty_cache()
+    return out
+
+
+class step_clock:
+    """A streamed run's stages on the host clock: the read
+    (GridReader.read, on the read-ahead thread), the device step
+    (core.pipeline.run_fused, imported by the call; CUDA events around it
+    too), the write-behind job (_WriteBehind._run) and, inside it, the host
+    ranks (stats_api.rank_variable) and the event and rank table writes
+    (_StreamTableWriter.write), then the return-period file written after
+    the last stripe (_write_return_file). ``steps``: (host start, host end,
+    event start, event end, cells); ``spans[stage]``: (start, end)."""
+
+    STAGES = {"read": ("stream", "GridReader", "read"),
+              "write job": ("stream", "_WriteBehind", "_run"),
+              "host ranks": ("stats_api", None, "rank_variable"),
+              "table writes": ("stream", "_StreamTableWriter",
+                                     "write"),
+              "return-period file": ("stream", None, "_write_return_file")}
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        from xmhw_tpu_torch.core import pipeline
+
+        self.steps, self.spans, self.undo = [], {}, []
+
+        def patch(owner, attr, wrap):
+            real = getattr(owner, attr)
+            setattr(owner, attr, wrap(real))
+            self.undo.append((owner, attr, real))
+
+        def clocked(into):
+            def wrap(fn):
+                def run(*a, **k):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        into.append((t, time.perf_counter()))
+                return run
+            return wrap
+
+        for stage, (mod, cls, attr) in self.STAGES.items():
+            owner = importlib.import_module(f"xmhw_tpu_torch.{mod}")
+            patch(getattr(owner, cls) if cls else owner, attr,
+                  clocked(self.spans.setdefault(stage, [])))
+
+        def timed(real):
+            def run(ts, *a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                e0.record()
+                out = real(ts, *a, **k)
+                e1.record()
+                self.steps.append((h0, time.perf_counter(), e0, e1,
+                                   ts.shape[1]))
+                return out
+            return run
+
+        patch(pipeline, "run_fused", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in reversed(self.undo):
+            setattr(owner, attr, real)
+
+    def device_ms(self):
+        self.steps[-1][3].synchronize()
+        return [e0.elapsed_time(e1) for _, _, e0, e1, _ in self.steps]
+
+    def total(self, stage):
+        return sum(b - a for a, b in self.spans[stage])
+
+
+class rss_peak:
+    """This process's resident set while the block runs: ``before`` and
+    ``peak`` in bytes (/proc/self/statm every 10 ms), and ``maxrss``, the
+    process's lifetime peak (getrusage) after it."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self.read()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+        return self
+
+    def read(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def run(self):
+        while not self.stop.wait(0.01):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        import resource
+
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.read())
+        self.maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def stream_band(card, d, dev, years=None):
+    """The production width through stream_run alone: BAND rows of the
+    0.25-degree grid (1,440 longitudes), BAND_LAND of them land, 40 daily
+    years (``years`` cuts them), float32, with block statistics and ranks
+    as the production job writes them; 8 stripes of 3 rows, so that the
+    steady state (read N+1, step N, write N-1) runs six times. Its
+    climatology and events must equal one in-memory run_fused over its
+    ocean cells. Logs each stripe's wall (from its device step's start to
+    the next one's, the last to the run's end) and stages (step_clock),
+    cells/s (land included), the device-step share (the steps' CUDA-event
+    time over the run's wall) and the host RSS. Returns the run's kernel
+    launches."""
+    import xmhw_tpu_torch as xt
+    from xmhw_tpu_torch.stream import _auto_stripe
+    from xmhw_tpu_torch.xrlite import Coord, DataArray, Dataset
+
+    t = daily(T0, T1) if years is None else daily(
+        T0, f"{1982 + years}-01-01")
+    T, (nlat, nlon) = len(t), BAND
+    n = nlat * nlon
+    w = time.perf_counter()
+    ts = synth_card(T, n, seed=9, land=int(BAND_LAND * n))
+    ds = Dataset()
+    ds["sst"] = DataArray(
+        ts.reshape(T, nlat, nlon), ("time", "lat", "lon"),
+        {"time": Coord(("time",), t),
+         "lat": Coord(("lat",), -45.875 + 0.25 * np.arange(nlat)),
+         "lon": Coord(("lon",), 0.125 + 0.25 * np.arange(nlon))},
+        {"units": "degree_C"})
+    src = str(d / "band.nc")
+    xt.save_dataset(ds, src)
+    ocean = ~np.isnan(ts).all(axis=0)
+    ocean_ts = np.ascontiguousarray(ts[:, ocean])
+    ocean = ocean.reshape(nlat, nlon)
+    nbytes = ts.nbytes
+    del ds, ts
+    gc.collect()
+    w = time.perf_counter() - w
+    rows = _auto_stripe(T, BAND)
+    stripes = -(-nlat // rows)
+    log(f"stream band: {nlat} x {nlon} (0.25 deg), {int(ocean.sum())} ocean "
+        f"cells of {n}, {T} days, float32 ({nbytes} B), made on the card "
+        f"and written in {w:.3f} s; stripes of {rows} rows "
+        f"({rows * nlon} cells): {stripes}  [{card}]")
+    if years is None and stripes != 8:
+        raise AssertionError(f"{stripes} stripes: want 8")
+    p = {k: str(d / f"band_{k}.nc") for k in ("clim", "mhw", "block", "rank")}
+    reset_launches()
+    with step_clock() as clock, rss_peak() as rss:
+        t0 = time.perf_counter()
+        xt.stream_run(src, "sst", p["clim"], p["mhw"], block_path=p["block"],
+                      rank_path=p["rank"], device=dev)
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing or len(clock.steps) != stripes:
+        raise AssertionError(f"band: {len(clock.steps)} device steps, "
+                             f"kernels not launched: {missing}")
+    dev_ms = clock.device_ms()
+    starts = [s[0] for s in clock.steps] + [t0 + wall]
+    per = [b - a for a, b in zip(starts, starts[1:])]
+    gb = 1 << 30
+    def secs(spans):
+        return ", ".join(f"{b - a:.3f}" for a, b in spans)
+
+    log(f"stream band: stream_run in {wall:.3f} s = {n / wall:.1f} cells/s "
+        f"(land included; {int(ocean.sum()) / wall:.1f} ocean cells/s); "
+        f"launches {launches}; before the first step {starts[0] - t0:.3f} "
+        f"s; per stripe (s): {', '.join(f'{x:.3f}' for x in per)}; reads "
+        f"(s, read-ahead thread): {secs(clock.spans['read'])}; device steps "
+        f"(ms): "
+        f"{', '.join(f'{x:.1f}' for x in dev_ms)}; write jobs (s, "
+        f"write-behind thread): {secs(clock.spans['write job'])}, of which "
+        f"host ranks {clock.total('host ranks'):.3f} s and event and rank "
+        f"table writes {clock.total('table writes'):.3f} s in all; then the "
+        f"return-period file {clock.total('return-period file'):.3f} s; "
+        f"device-step share "
+        f"{sum(dev_ms) / 1e3 / wall:.3f}; host RSS {rss.before / gb:.2f} GB "
+        f"before, peak {rss.peak / gb:.2f} GB during (sampled), process "
+        f"lifetime peak {rss.maxrss / gb:.2f} GB  [{card}]")
+    nev = equal_to_fused(p["clim"], p["mhw"], ocean_ts, ocean, t, dev,
+                         "stream band")
+    log(f"stream band: clim and {nev} events equal one in-memory run_fused "
+        f"over the {int(ocean.sum())} ocean cells  [{card}]")
+    return launches
 
 
 def main():
@@ -1901,7 +2360,12 @@ def main():
               "(torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     import xmhw_tpu_torch  # noqa: F401  (fails outside a checkout)
+    import tempfile
 
+    choose_h5py()
+    # the streamed runs' K cache (kcache.json) lives and dies with the run
+    cache = tempfile.TemporaryDirectory(prefix="xmhw_kcache_")
+    os.environ["XMHW_COMPILE_CACHE"] = cache.name
     card = phase_device()
     phase_build()
     rows = phase_kernels(card)
@@ -1915,12 +2379,14 @@ def main():
     phase_stream_steps(card, da, clim, mhw)
     rows[0]["long_records"] = phase_options(card, da)
     phase_cli(card)
-    phase_stream(card)
+    stream_launches = phase_stream(card)
     for r in rows:
         if r["name"] in launches:  # run_bound: counted in phase_kernels
             r["launches"] = launches[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]
         r["procs_launches"] = procs_launches.get(r["name"], [0, 0])
+        r["stream_launches"] = stream_launches.get(r["name"], 0)
+    cache.cleanup()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

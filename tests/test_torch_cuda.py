@@ -677,3 +677,72 @@ def test_dryrun_two_ranks_on_one_card(dev):
     assert r.returncode == 0, r.stdout + r.stderr[-4000:]
     assert "rank 0: OK" in r.stdout and "rank 1: OK" in r.stdout
     assert "torch multiproc dryrun: PASS" in r.stdout
+
+
+@pytest.fixture
+def h5py_lib(monkeypatch):
+    """The library the streamed files go through, for this test alone:
+    h5py, or on a machine without it (the card's) the numpy stand-in, put
+    first on sys.path as chip_smoke.py puts it. The path and the module
+    are taken back after the test."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is not None:
+        yield
+        return
+    monkeypatch.syspath_prepend(
+        str(Path(__file__).resolve().parent.parent / "tools" /
+            "h5py_standin"))
+    yield
+    sys.modules.pop("h5py", None)
+
+
+def test_stream_run_fills_gaps_on_the_read_ahead_thread(dev, tmp_path,
+                                                        h5py_lib):
+    """stream_run(maxPadLength=2) on the card, four stripes: each stripe's
+    gaps are filled on the card by the read-ahead thread while the main
+    thread steps the previous stripe. The climatology and the event tables
+    equal one in-memory run_fused over the gaps filled on the main thread,
+    bit for bit, and the K of later stripes (k_min) loses no event."""
+    from xmhw_tpu_torch.api import _interpolate_na
+    from xmhw_tpu_torch.core.features_scan import TABLE_VARS
+    from xmhw_tpu_torch.xrlite import Dataset
+
+    t = np.arange(f"{START_YEAR}-01-01", f"{START_YEAR + 6}-01-01",
+                  dtype="datetime64[D]").astype("datetime64[ns]")
+    T, ny, nx = len(t), 16, 24
+    ts = field(T, ny * nx, 21).astype(np.float32)
+    rng = np.random.default_rng(4)
+    ts[:, rng.permutation(ny * nx)[:40]] = np.nan  # land
+    for c in rng.permutation(ny * nx)[:96]:  # 1-, 2- and 5-day gaps
+        for n in (1, 2, 5):
+            s = int(rng.integers(1, T - 6))
+            ts[s:s + n, c] = np.nan
+    ds = Dataset()
+    ds["sst"] = DataArray(
+        ts.reshape(T, ny, nx), ("time", "lat", "lon"),
+        {"time": Coord(("time",), t),
+         "lat": Coord(("lat",), np.arange(ny, dtype=float)),
+         "lon": Coord(("lon",), np.arange(nx, dtype=float))})
+    src = str(tmp_path / "sst.nc")
+    xt.save_dataset(ds, src)
+    c, m = str(tmp_path / "c.nc"), str(tmp_path / "m.nc")
+    xt.stream_run(src, "sst", c, m, maxPadLength=2, stripe=4, device=dev)
+    ocean = ~np.isnan(ts).all(axis=0)
+    filled = _interpolate_na(np.ascontiguousarray(ts[:, ocean]), 2, dev)
+    doy, ndoy = compute_doy(TimeIndex(t))
+    th, se, tables, nev, _ = pipeline.run_fused(
+        filled, doy, (doy - 1).astype(np.int32), ndoy=ndoy, device=dev)
+    clim, mhw = xt.open_dataset(c), xt.open_dataset(m)
+    for k, v in (("thresh", th), ("seas", se)):
+        assert np_same_bits(
+            np.asarray(clim[k].data).reshape(ndoy, -1)[:, ocean], v), k
+    K = mhw["event"].sizes["ev"]
+    assert K >= tables["event"].shape[0] and int(nev.sum()) > 0
+    for k in TABLE_VARS:
+        if k.startswith("time_"):
+            continue
+        got = np.asarray(mhw[k].data, np.float64).reshape(K, -1)[:, ocean]
+        want = np.full(got.shape, np.nan)
+        want[:tables[k].shape[0]] = tables[k]
+        np.testing.assert_array_equal(got, want, err_msg=k)

@@ -13,6 +13,8 @@ positions, counts and ranks exact, event floats within 2e-3.
 """
 
 import gc
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +28,9 @@ import xmhw_tpu as xm  # noqa: E402
 import xmhw_tpu_torch as xt  # noqa: E402
 from test_torch_stream import assert_files_match, write_grid  # noqa: E402
 from xmhw_tpu_torch import stream as tst  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
 
 PARTS = ("clim", "mhw", "block", "rank", "return")
 CPU = {"device": "cpu"}
@@ -82,17 +87,7 @@ def test_stream_run_resume_without_watermark(grid_file, tmp_path):
 def _stop_after_first_stripe(monkeypatch):
     """The second write-behind job raises instead of writing: the run
     stops with its first stripe (and that stripe's watermark) on disk."""
-    real = tst._WriteBehind.submit
-    jobs = []
-
-    def submit(self, fn):
-        jobs.append(fn)
-        if len(jobs) == 2:
-            def fn():
-                raise RuntimeError("stopped after the first stripe")
-        real(self, fn)
-
-    monkeypatch.setattr(tst._WriteBehind, "submit", submit)
+    cs.stop_after_first_stripe(monkeypatch.setattr)
 
 
 def _run_all(src, d, resume=False):

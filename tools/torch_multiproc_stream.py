@@ -23,8 +23,10 @@ one-process runs, as a deployment whose bands tile the stripe grid.
     python tools/torch_multiproc_stream.py --device cpu   # 2 gloo ranks
     python tools/torch_multiproc_stream.py [flags] RANK PORT DIR   # one rank
 
-The streamed functions read and write NetCDF4 through h5py: without it
-the tool exits with a message and code 1. The launcher kills every rank
+The streamed functions read and write NetCDF4 through h5py, or on a
+machine without it through the numpy stand-in tools/h5py_standin put
+first on PYTHONPATH (as chip_smoke.py puts it; the ranks inherit it).
+With neither the tool exits with a message and code 1. The launcher kills every rank
 when one fails or ``--timeout`` passes, and prints PASS or FAIL.
 """
 
@@ -191,8 +193,9 @@ def main(argv=None):
     args = parse(argv)
     if importlib.util.find_spec("h5py") is None:
         print("torch multiproc stream: needs h5py, which the streamed "
-              "functions read and write NetCDF4 through; not installed",
-              file=sys.stderr)
+              "functions read and write NetCDF4 through; not installed "
+              "(on a machine without it, put tools/h5py_standin first on "
+              "PYTHONPATH)", file=sys.stderr)
         return 1
     if args.rank is not None:
         if args.dir is None:
