@@ -540,6 +540,49 @@ def test_timed_synchronises_the_card(dev, monkeypatch):
     assert t["seconds"] > 0.0
 
 
+def test_trace_holds_the_program_spans_over_the_card_work(dev, tmp_path):
+    """utils.trace around threshold() + detect() on the card: the chrome
+    trace holds the program's spans, the kernels they launched and the
+    copies, on one clock; the byte counters equal the traced copies."""
+    import glob
+    import json
+
+    from xmhw_tpu_torch import utils
+
+    da = f64_grid()
+    da = DataArray(da.data.astype(np.float32), da.dims, da.coords)
+    clim = xt.threshold(da, device=str(dev))  # builds, warms
+    xt.detect(da, clim["thresh"], clim["seas"], device=str(dev))
+    before = utils.counts()
+    with utils.trace(str(tmp_path)):
+        clim = xt.threshold(da, device=str(dev))
+        xt.detect(da, clim["thresh"], clim["seas"], device=str(dev))
+    after = utils.counts()
+    (path,) = glob.glob(str(tmp_path / "*.json"))
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in ev if e.get("cat") == "user_annotation"
+             and str(e["name"]).startswith("xmhw/")]
+    names = [e["name"] for e in spans]
+    for n, k in (("xmhw/threshold", 1), ("xmhw/detect", 1),
+                 ("xmhw/land_check", 4), ("xmhw/assemble", 2),
+                 ("xmhw/run_clim", 1), ("xmhw/run_detect", 1)):
+        assert names.count(n) == k, n
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    assert any("doy_quantile" in e["name"] for e in kernels)
+    assert any("rle_kernel" in e["name"] for e in kernels)
+    (t0, t1), (d0, d1) = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+                          if e["name"] in ("xmhw/threshold", "xmhw/detect")]
+    assert t0 < t1 <= d0 < d1  # host spans on the device's clock
+    copied = {k: sum(int((e.get("args") or {}).get("bytes", 0)) for e in ev
+                     if e.get("cat") == "gpu_memcpy" and k in e["name"])
+              for k in ("HtoD", "DtoH")}
+    # the counters hold the pipeline's copies; the trace has besides
+    # a few bytes of scalars up and of K and the overflow check down
+    for k, name in (("HtoD", "h2d_bytes"), ("DtoH", "d2h_bytes")):
+        assert 0 <= copied[k] - (after[name] - before[name]) <= 256, k
+
+
 def test_stats_default_device_is_the_card(dev):
     """block_average()/mhw_rank() without ``device`` equal device="cuda"
     bit for bit."""

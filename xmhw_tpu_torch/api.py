@@ -13,6 +13,11 @@ whose devices split each cell block (``device`` is then not read); with
 None and ``device="cuda"`` every GPU is used when more than one is
 visible (the JAX package's default); ``"cuda:0"`` or ``"cpu"`` mean one
 device. Anything else raises TypeError.
+
+Under a profiler (:func:`xmhw_tpu_torch.utils.trace`) each call and its
+host stages are ``xmhw/`` spans: ``threshold``, ``detect``,
+``land_check``, ``align_clim`` and ``assemble`` (the output Dataset's
+build), around those of ``core/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ from .core.pipeline import mesh_device, run_clim, run_detect
 from .core.point import (point_clim, point_detect, point_interpolate_na,
                          runavg_circular_np as _runavg_circular_np)
 from .exception import XmhwException
+from .utils import in_span, span
 from .xrlite import Coord, DataArray, Dataset, TimeIndex, unstack_cell
 from .xrlite.adapt import as_dataarray
 
 __all__ = ["threshold", "detect", "land_check", "flip_cold"]
 
 
+@in_span("land_check")
 def land_check(temp, tdim="time", anynans=False):
     """Stack all non-time dims into 'cell' and drop land (NaN) cells.
 
@@ -114,6 +121,7 @@ def _scalar_coords(da, tdim):
     return out
 
 
+@in_span("threshold")
 def threshold(
     temp,
     tdim="time",
@@ -215,36 +223,39 @@ def threshold(
             seas = _runavg_circular_np(seas, smoothPercentileWidth)
         ndoy = len(doy_labels)
 
-    doy_coord = Coord(("doy",), doy_labels)
-    q_coord = Coord((), np.float64(pctile / 100.0))
-    ds = Dataset()
-    if point:
-        scal = {k: Coord((), v) for k, v in _scalar_coords(ts, tdim).items()}
-        ds["thresh"] = DataArray(
-            thresh[:, 0], ("doy",),
-            {"doy": doy_coord, "quantile": q_coord, **scal})
-        ds["seas"] = DataArray(seas[:, 0], ("doy",),
-                               {"doy": doy_coord, **scal})
-    else:
-        cell_coords = _cell_coords(ts)
-        grid_dims = sorted(cell_coords)
-        th_full, uniques = unstack_cell(thresh, cell_coords, grid_dims)
-        se_full, _ = unstack_cell(seas, cell_coords, grid_dims)
-        coords = {"doy": doy_coord}
-        for d in grid_dims:
-            coords[d] = Coord((d,), uniques[d],
-                              ds_attrs.get(d, {}))
-        ds["thresh"] = DataArray(th_full, ("doy", *grid_dims),
-                                 {**coords, "quantile": q_coord})
-        ds["seas"] = DataArray(se_full, ("doy", *grid_dims), coords)
+    with span("assemble"):
+        doy_coord = Coord(("doy",), doy_labels)
+        q_coord = Coord((), np.float64(pctile / 100.0))
+        ds = Dataset()
+        if point:
+            scal = {k: Coord((), v)
+                    for k, v in _scalar_coords(ts, tdim).items()}
+            ds["thresh"] = DataArray(
+                thresh[:, 0], ("doy",),
+                {"doy": doy_coord, "quantile": q_coord, **scal})
+            ds["seas"] = DataArray(seas[:, 0], ("doy",),
+                                   {"doy": doy_coord, **scal})
+        else:
+            cell_coords = _cell_coords(ts)
+            grid_dims = sorted(cell_coords)
+            th_full, uniques = unstack_cell(thresh, cell_coords, grid_dims)
+            se_full, _ = unstack_cell(seas, cell_coords, grid_dims)
+            coords = {"doy": doy_coord}
+            for d in grid_dims:
+                coords[d] = Coord((d,), uniques[d],
+                                  ds_attrs.get(d, {}))
+            ds["thresh"] = DataArray(th_full, ("doy", *grid_dims),
+                                     {**coords, "quantile": q_coord})
+            ds["seas"] = DataArray(se_full, ("doy", *grid_dims), coords)
 
-    ds = annotate_ds(ds, ds_attrs, "clim")
-    ds.attrs["xmhw_parameters"] = threshold_params_attr(
-        pctile, tindex.year[0], tindex.year[-1], windowHalfWidth, skipna,
-        smoothPercentile, smoothPercentileWidth, anynans)
+        ds = annotate_ds(ds, ds_attrs, "clim")
+        ds.attrs["xmhw_parameters"] = threshold_params_attr(
+            pctile, tindex.year[0], tindex.year[-1], windowHalfWidth, skipna,
+            smoothPercentile, smoothPercentileWidth, anynans)
     return ds
 
 
+@in_span("align_clim")
 def _align_clim_cells(clim_da, ts_cell_coords, n_cells, name):
     """Reindex a stacked climatology onto the ts cell order.
 
@@ -288,6 +299,7 @@ def _align_clim_cells(clim_da, ts_cell_coords, n_cells, name):
     return clim_da.isel(cell=order[pos])
 
 
+@in_span("detect")
 def detect(
     temp,
     th,
@@ -464,6 +476,7 @@ def _union_values(name, tab, valid, time_vals, time_like):
 _TIME_LIKE = frozenset({"time_start", "time_end", "time_peak"})
 
 
+@in_span("assemble")
 def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs):
     """Build the events Dataset: union of per-cell event labels.
 
@@ -512,6 +525,7 @@ def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs):
     return ds
 
 
+@in_span("assemble")
 def _assemble_events_compact(tables, n_events, time_vals, point, ts, tdim,
                              ds_attrs):
     """Compact layout: dims (ev, ...) with per-cell event slots.
@@ -550,6 +564,7 @@ def _assemble_events_compact(tables, n_events, time_vals, point, ts, tdim,
     return ds
 
 
+@in_span("assemble")
 def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None):
     """Per-day intermediate Dataset (reference: xmhw.py:471-478;
     point-mode keeps the pandas 'index' dim name, grid mode uses time)."""

@@ -17,6 +17,15 @@ RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
 code. The stats stage of :func:`run_fused` is torch reductions
 (core/stats.py). CPU tensors always take the plain versions.
 
+Each block function and each of its host stages runs in an ``xmhw/``
+span (:func:`xmhw_tpu_torch.utils.span`: ``run_clim``, ``run_detect``,
+``run_fused``, ``fused_threshold_detect``, ``clim_tables``,
+``upload``, ``count_k``, ``detect_retry``, ``fused_stats``,
+``fetch_rows``, ``store``), so a profiler's trace names the host work
+under each idle stretch of the device; the counters ``h2d_bytes``,
+``d2h_bytes``, ``detect_passes`` and ``detect_blocks``
+(:func:`xmhw_tpu_torch.utils.counts`) count the copies and passes.
+
 The block functions read data that one process holds whole. Across
 processes (a global mesh, ``parallel.mesh``) each rank runs
 :func:`fused_threshold_detect` on its own device-resident shards.
@@ -30,6 +39,7 @@ import torch
 from ..ops.doy_quantile import doy_quantile
 from ..parallel.mesh import (CellMesh, cell_mesh, cell_sharding, check_mesh,
                              in_process_group, process_device, replicated)
+from ..utils import count, in_span
 from .clim import clim_kernel, finish_clim
 from .features_scan import count_events, detect_kernel
 
@@ -108,10 +118,13 @@ def _max_over(vals) -> int:
     return int(torch.stack([m.to(home) for m in ms]).max())
 
 
+@in_span("upload")
 def upload(arr_np, lo, hi, dev, pad_rows=0):
     """Cells [lo, hi) of a (T, C) host array as a (T + pad_rows, hi-lo)
-    device tensor, the pad rows NaN."""
+    device tensor, the pad rows NaN. Counts the cells' bytes in
+    ``h2d_bytes``."""
     blk = np.ascontiguousarray(arr_np[..., lo:hi])
+    count("h2d_bytes", blk.nbytes)
     src = torch.from_numpy(blk)
     if not pad_rows:
         return src.to(dev)
@@ -122,16 +135,19 @@ def upload(arr_np, lo, hi, dev, pad_rows=0):
     return out
 
 
+@in_span("fetch_rows")
 def fetch_rows(d):
     """Download a dict of device tensors with ONE device-to-host copy per
     dtype (flattened and concatenated on the device first). Returns
-    numpy arrays of the original shapes."""
+    numpy arrays of the original shapes. Counts the bytes in
+    ``d2h_bytes``."""
     groups = {}
     for k, v in d.items():
         groups.setdefault(v.dtype, []).append(k)
     out = {}
     for ks in groups.values():
         flat = torch.cat([d[k].reshape(-1) for k in ks]).cpu().numpy()
+        count("d2h_bytes", flat.nbytes)
         lo = 0
         for k in ks:
             n = d[k].numel()
@@ -152,6 +168,7 @@ def _fill_of(v):
     return -1 if np.issubdtype(v.dtype, np.integer) else np.nan
 
 
+@in_span("clim_tables")
 def _clim_tables(doy_np, w, ndoy, kernels, mesh):
     """Range tables for the kernel, or the gather table for the plain
     path, one copy per device of the mesh: (kernels, rmax, {device:
@@ -186,6 +203,7 @@ def _clim_block(x, tables, kernels, ndoy, pctile, smooth, smooth_w,
                        smooth_w=smooth_w, patch_feb29=patch_feb29)
 
 
+@in_span("fused_threshold_detect")
 def fused_threshold_detect(ts, doy, doy_pos, pctile=90, smooth=True,
                            smooth_w=31, patch_feb29=True, K=64,
                            min_duration=5, join_gaps=True, max_gap=2, *,
@@ -232,6 +250,7 @@ def fused_threshold_detect(ts, doy, doy_pos, pctile=90, smooth=True,
     return th, se, table, n_events
 
 
+@in_span("run_clim")
 def run_clim(ts_np, doy_np, w, ndoy, pctile, smooth, smooth_w, patch_feb29,
              block=None, mesh=None, use_kernels=None, use_mesh=True,
              device="cuda"):
@@ -267,6 +286,7 @@ class _Tables:
         self.C = C
         self.arrays = None
 
+    @in_span("store")
     def put(self, tbl_h, lo, hi, K):
         from ..xrlite.alloc import alloc_filled
 
@@ -282,24 +302,30 @@ class _Tables:
             self.arrays[k][:v.shape[0], lo:hi] = v
 
 
+@in_span("count_k")
 def _count_k(ins, min_duration, join_gaps, max_gap, day0_fillna_quirk,
              kernels, floor=1):
     """The counting pass on every shard of a block: the largest number of
     events in a cell of the block (at least ``floor``). ``ins``: (ts, th,
-    se, doy_pos) per shard."""
+    se, doy_pos) per shard. One ``detect_passes`` a shard."""
+    count("detect_passes", len(ins))
     ns = [count_events(ts, th, pos, min_duration, join_gaps, max_gap,
                        day0_fillna_quirk, kernels)
           for ts, th, _, pos in ins]
     return max(_max_over(ns), floor)
 
 
+@in_span("detect_retry")
 def _detect_retry(ins, K, cap, intermediate, det_kw):
     """detect_kernel on every shard of a block with the overflow retry:
     the raw per-cell counts can exceed K; every shard reruns with a larger
     K (one K per block) unless the cap forbids it. ``ins``: (ts, th, se,
     doy_pos) per shard. Returns ([(table, n_events, inter)] per shard,
-    K)."""
+    K). One ``detect_passes`` a shard and run, one ``detect_blocks`` a
+    shard."""
+    count("detect_blocks", len(ins))
     while True:
+        count("detect_passes", len(ins))
         outs = [detect_kernel(*i, K, intermediate=intermediate, **det_kw)
                 for i in ins]
         raw_max = _max_over([nev for _, nev, _ in outs])
@@ -317,6 +343,7 @@ def _warn_dropped(dropped, k_cap):
             "across the grid", k_cap, dropped)
 
 
+@in_span("run_detect")
 def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
                max_gap, intermediate=False, block=None, mesh=None,
                k_cap=None, day0_fillna_quirk=False, use_kernels=None,
@@ -377,6 +404,7 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     return tables.arrays, n_events, inter_out
 
 
+@in_span("fused_stats")
 def fused_stats(table, ts, th, se, doy_pos, ybod, nbins, day_edges,
                 count_nans, rank_names, cold):
     """The stats layer on a device-resident detect output: the year-block
@@ -436,6 +464,7 @@ class _Extras:
         self.C = C
         self.parts = {}
 
+    @in_span("store")
     def put(self, st_h, lo, hi):
         from ..xrlite.alloc import alloc_filled
 
@@ -453,6 +482,7 @@ class _Extras:
                 rows[k][:v.shape[0], lo:hi] = v
 
 
+@in_span("run_fused")
 def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
               smooth=True, smooth_w=31, patch_feb29=True, min_duration=5,
               join_gaps=True, max_gap=2, day0_fillna_quirk=False,

@@ -31,6 +31,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils import count
+
 CELL_AXIS = "cells"
 
 
@@ -175,8 +177,10 @@ def cell_sharding(mesh, lo: int, hi: int):
 
 def replicated(mesh, t: torch.Tensor) -> dict:
     """One copy of a small table per distinct device of the mesh:
-    ``{device: tensor}``."""
-    return {d: t.to(d) for d in dict.fromkeys(mesh)}
+    ``{device: tensor}``. Counts the copies' bytes in ``h2d_bytes``."""
+    devs = dict.fromkeys(mesh)
+    count("h2d_bytes", t.nbytes * len(devs))
+    return {d: t.to(d) for d in devs}
 
 
 def pad_cells(arr: np.ndarray, multiple: int, fill=np.nan):
