@@ -556,8 +556,16 @@ def test_trace_holds_the_program_spans_over_the_card_work(dev, tmp_path):
     before = utils.counts()
     with utils.trace(str(tmp_path)):
         clim = xt.threshold(da, device=str(dev))
-        xt.detect(da, clim["thresh"], clim["seas"], device=str(dev))
+        mhw = xt.detect(da, clim["thresh"], clim["seas"], device=str(dev))
     after = utils.counts()
+    # detect()'s union grids, built on the card: each valid entry's flat
+    # index (int64) and every variable's value up, the grids down
+    n = int(np.isfinite(np.asarray(mhw["event"].data)).sum())
+    union_up = n * (8 + sum(np.asarray(mhw[k].data).itemsize
+                            for k in mhw.keys()))
+    union_down = after["union_card_bytes"] - before["union_card_bytes"]
+    assert union_down == sum(np.asarray(mhw[k].data).nbytes
+                             for k in mhw.keys())
     (path,) = glob.glob(str(tmp_path / "*.json"))
     with open(path) as f:
         ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -579,8 +587,9 @@ def test_trace_holds_the_program_spans_over_the_card_work(dev, tmp_path):
               for k in ("HtoD", "DtoH")}
     # the counters hold the pipeline's copies; the trace has besides
     # a few bytes of scalars up and of K and the overflow check down
-    for k, name in (("HtoD", "h2d_bytes"), ("DtoH", "d2h_bytes")):
-        assert 0 <= copied[k] - (after[name] - before[name]) <= 256, k
+    for k, name, union in (("HtoD", "h2d_bytes", union_up),
+                           ("DtoH", "d2h_bytes", union_down)):
+        assert 0 <= copied[k] - (after[name] - before[name]) - union <= 256, k
 
 
 def test_stats_default_device_is_the_card(dev):
@@ -594,6 +603,68 @@ def test_stats_default_device_is_the_card(dev):
     for x, y in zip(xt.mhw_rank(mhw), xt.mhw_rank(mhw, device="cuda")):
         for k in y.keys():
             assert np_same_bits(x[k].data, y[k].data), k
+
+
+def union_grid():
+    """10 daily years on a 64 x 64 grid, row 0 and column 9 land."""
+    T = 3650
+    t = (np.datetime64("2001-01-01", "ns")
+         + np.arange(T) * np.timedelta64(1, "D"))
+    ts = field(T, 64 * 64, 12).reshape(T, 64, 64)
+    ts[:, 0, :] = np.nan
+    ts[:, :, 9] = np.nan
+    return DataArray(ts, ("time", "lat", "lon"),
+                     {"time": Coord(("time",), t),
+                      "lat": Coord(("lat",), np.arange(64.0)),
+                      "lon": Coord(("lon",), np.arange(64.0))})
+
+
+def test_union_grids_built_on_the_card(dev, monkeypatch):
+    """detect()'s union grids on the card: bit-equal to the host route,
+    which a card run takes where the pinned buffers would not fit, in
+    every variable; the counters rise by one call and the grids' bytes;
+    the arrays are writable views of pinned memory, and they keep their
+    values while a second detect() runs."""
+    from xmhw_tpu_torch import api, utils
+
+    da = union_grid()
+    clim = xt.threshold(da, device=dev)
+    args = (da, clim["thresh"], clim["seas"])
+    before = utils.counts()
+    card = xt.detect(*args, device=dev)
+    after = utils.counts()
+    grids = {k: np.asarray(card[k].data) for k in card.keys()}
+    assert all(card[k].dims[0] == "events" for k in grids)
+    assert after["union_card_calls"] - before.get("union_card_calls",
+                                                  0) == 1
+    assert after["union_card_bytes"] - before.get(
+        "union_card_bytes", 0) == sum(a.nbytes for a in grids.values())
+    assert torch.from_numpy(grids["duration"]).is_pinned()
+
+    # no host memory to pin: the host route
+    monkeypatch.setattr(api, "_host_available", lambda: 0)
+    host = xt.detect(*args, device=dev)
+    monkeypatch.undo()
+    assert utils.counts()["union_card_calls"] == after["union_card_calls"]
+    assert sorted(host.keys()) == sorted(card.keys())
+    for k in host.keys():
+        assert card[k].dims == host[k].dims, k
+        for c in host[k].coords:
+            assert np_same_bits(card[k].coords[c].values,
+                                host[k].coords[c].values), (k, c)
+        assert np_same_bits(grids[k], host[k].data), k
+    assert np.isfinite(grids["event"]).sum() > 1000
+
+    kept = {k: a.copy() for k, a in grids.items()}
+    again = xt.detect(*args, device=dev)
+    assert utils.counts()["union_card_calls"] == after[
+        "union_card_calls"] + 1
+    for k, a in grids.items():
+        assert np_same_bits(a, kept[k]), k
+        assert np_same_bits(np.asarray(again[k].data), kept[k]), k
+        assert a.flags.writeable, k
+    grids["duration"][0, 1, 1] = 7.0
+    assert grids["duration"][0, 1, 1] == 7.0
 
 
 def f64_grid():

@@ -33,7 +33,7 @@ from .core.pipeline import mesh_device, run_clim, run_detect
 from .core.point import (point_clim, point_detect, point_interpolate_na,
                          runavg_circular_np as _runavg_circular_np)
 from .exception import XmhwException
-from .utils import in_span, span
+from .utils import count, in_span, span
 from .xrlite import Coord, DataArray, Dataset, TimeIndex, unstack_cell
 from .xrlite.adapt import as_dataarray
 
@@ -339,7 +339,14 @@ def detect(
     other run (a deliberate fix; see core/events.py).
 
     ``device``: where the cell blocks run (default ``"cuda"``); ``mesh``
-    as in :func:`threshold`.
+    as in :func:`threshold`. On a CUDA device (with a mesh, its first
+    device) the union layout's grids are built on the card and copied
+    into page-locked host memory, where that fits in the host memory
+    available: each output array is then a view of a pinned buffer,
+    rounded up to a power of two (up to twice the array's bytes, which
+    cannot be swapped out while the array lives), and PyTorch's caching
+    host allocator keeps the buffer for reuse, not returning it to the
+    system, once the array dies.
     """
     dev = mesh_device(mesh, device)
     temp = as_dataarray(temp)
@@ -417,7 +424,7 @@ def detect(
                                        ts, tdim, ds_attrs)
     else:
         mhw = _assemble_events(tables, time_vals, point, ts, tdim,
-                               ds_attrs)
+                               ds_attrs, dev)
     if coldSpells:
         mhw = flip_cold(mhw)
     mhw = annotate_ds(mhw, ds_attrs, "mhw")
@@ -459,47 +466,59 @@ def _union_geometry(labels):
     return union, rows, cols, valid
 
 
-def _union_values(name, tab, valid, time_vals, time_like):
-    """Valid entries of one event variable, time-decoded if needed.
+def _union_values(name, vals, time_vals, time_like):
+    """Valid entries ``vals`` (Nvalid,) of one event variable,
+    time-decoded if needed.
 
     Returns (values (Nvalid,), fill, storage dtype)."""
     if name in time_like:
-        idx = tab[valid].astype(np.int64)
+        idx = vals.astype(np.int64)
         v = time_vals[np.clip(idx, 0, len(time_vals) - 1)]
         if np.issubdtype(np.asarray(time_vals).dtype, np.datetime64):
             return (np.where(idx >= 0, v, np.datetime64("NaT")),
                     np.datetime64("NaT"), v.dtype)
         return np.where(idx >= 0, v, np.nan), np.nan, np.float64
-    return tab[valid], np.nan, tab.dtype
+    return vals, np.nan, vals.dtype
 
 
 _TIME_LIKE = frozenset({"time_start", "time_end", "time_peak"})
 
 
 @in_span("assemble")
-def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs):
+def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs, dev=None):
     """Build the events Dataset: union of per-cell event labels.
 
     The reference's events dimension is the union of start indexes across
     cells, NaN elsewhere (docs/gettingstarted.rst:76-114). The dense
     (K, cell) device tables are scattered DIRECTLY into the final
-    (events, lat, lon, ...) grids — one prefaulted allocation and one
-    vectorized scatter per variable, no intermediate (E, cell) arrays
+    (events, lat, lon, ...) grids, with no intermediate (E, cell) arrays
     (the round-1 version materialized both and was page-fault bound).
+
+    Where the grids are built: on a CUDA ``dev``, where their page-locked
+    host buffers fit (:func:`_union_on_card`), on the card, then copied
+    once into page-locked host memory (:func:`_union_grids_card`);
+    otherwise, and for a point series, on the host: one prefaulted
+    allocation and one vectorized scatter per variable. Both give the
+    same values in the same positions.
     """
     from .xrlite.alloc import alloc_filled
     from .xrlite.dataarray import grid_positions
 
+    count("union_calls")
     labels = tables["event"]  # (K, C)
     union, rows, cols, valid = _union_geometry(labels)
+    # np.take at the flat positions gathers the entries tab[valid] gives,
+    # in the same order, several times faster than the mask
+    flat = np.flatnonzero(valid)
+    parts = {name: _union_values(name, np.take(tab, flat), time_vals,
+                                 _TIME_LIKE)
+             for name, tab in tables.items()}
     E = len(union)
     ev_coord = Coord(("events",), union)
     ds = Dataset()
 
     if point:
-        for name, tab in tables.items():
-            tv, fill, dt = _union_values(name, tab, valid, time_vals,
-                                         _TIME_LIKE)
+        for name, (tv, fill, dt) in parts.items():
             out = np.full(E, fill, dt)
             out[rows] = tv
             ds[name] = DataArray(out, ("events",), {"events": ev_coord})
@@ -516,13 +535,89 @@ def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs):
     coords = {"events": ev_coord}
     for d in grid_dims:
         coords[d] = Coord((d,), uniques[d], ds_attrs.get(d, {}))
-    for name, tab in tables.items():
-        tv, fill, dt = _union_values(name, tab, valid, time_vals,
-                                     _TIME_LIKE)
-        out = alloc_filled((E,) + grid_shape, fill, dt)
-        out.reshape(-1)[fidx] = tv
+    shape = (E,) + grid_shape
+    if _union_on_card(dev, [E * G * np.dtype(dt).itemsize
+                            for _, _, dt in parts.values()]):
+        grids = _union_grids_card(parts, fidx, shape, dev)
+    else:
+        grids = {}
+        for name, (tv, fill, dt) in parts.items():
+            grids[name] = out = alloc_filled(shape, fill, dt)
+            out.reshape(-1)[fidx] = tv
+    for name, out in grids.items():
         ds[name] = DataArray(out, ("events", *grid_dims), coords)
     return ds
+
+
+def _union_on_card(dev, grid_bytes):
+    """Whether the union grids are built on the card: ``dev`` is a CUDA
+    device, and the page-locked host buffers they land in fit in the host
+    memory available now. PyTorch's caching host allocator rounds each
+    buffer up to a power of two, so ``grid_bytes`` (each variable's grid)
+    may take up to twice as much; where they do not fit, the host route
+    builds the grids in pageable memory."""
+    if dev is None or torch.device(dev).type != "cuda":
+        return False
+    pinned = sum(1 << (b - 1).bit_length() for b in grid_bytes if b)
+    return pinned <= _host_available()
+
+
+def _host_available():
+    """Bytes of host memory available now: the kernel's MemAvailable
+    where it reports one, else the free pages."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _union_grids_card(parts, fidx, shape, dev):
+    """The union grids built on ``dev`` and copied to the host.
+
+    ``parts``: {name: (valid values (N,), fill, storage dtype)}, as
+    :func:`_union_values` gives them; ``fidx`` (N,): their flat positions
+    in a grid of ``shape``. The indexes and every variable's values go
+    up once; then each grid is filled and scattered on ``dev`` (a
+    datetime64 variable as its int64 view, NaT as int64's least value)
+    and copied to the host without blocking, which from a CUDA device
+    lands in page-locked memory of PyTorch's caching host allocator. The
+    device's stream orders each copy before the next grid reuses its
+    memory; one synchronisation at the end. Returns {name: array of
+    ``shape``}, each a view of its own host tensor (the array keeps the
+    tensor alive). On a CPU ``dev`` the same steps run in host memory.
+    """
+    n = int(np.prod(shape))
+    fidx_d = torch.as_tensor(fidx, dtype=torch.int64, device=dev)
+    # all up before the first copy down: a copy from pageable memory
+    # waits for the stream, so one between the copies down would stall
+    vals = [torch.as_tensor(tv.view(_storage(dt)), device=dev)
+            for tv, _, dt in parts.values()]
+    grids = {}
+    for (name, (_, fill, dt)), v in zip(parts.items(), vals):
+        g = torch.full((n,), _NAT if np.dtype(dt).kind == "M" else fill,
+                       dtype=v.dtype, device=dev)
+        g.index_put_((fidx_d,), v)
+        host = g.to("cpu", non_blocking=True)
+        grids[name] = host.numpy().view(dt).reshape(shape)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    count("union_card_calls")
+    count("union_card_bytes", sum(a.nbytes for a in grids.values()))
+    return grids
+
+
+def _storage(dt):
+    """The numpy dtype a variable of storage dtype ``dt`` has on the
+    device: datetime64 as int64, anything else as itself."""
+    dt = np.dtype(dt)
+    return np.dtype(np.int64) if dt.kind == "M" else dt
+
+
+_NAT = int(np.datetime64("NaT").view(np.int64))
 
 
 @in_span("assemble")
@@ -543,8 +638,7 @@ def _assemble_events_compact(tables, n_events, time_vals, point, ts, tdim,
         if name in _TIME_LIKE:
             # same time-index decode as the union layout
             per_var[name], _, _ = _union_values(
-                name, tab, np.ones(tab.shape, bool), time_vals,
-                _TIME_LIKE)
+                name, tab.reshape(-1), time_vals, _TIME_LIKE)
             per_var[name] = per_var[name].reshape(tab.shape)
         else:
             per_var[name] = tab

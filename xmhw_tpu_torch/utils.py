@@ -122,9 +122,12 @@ def count(name: str, n=1):
     the pipeline stages onto its devices: ``pipeline.upload`` and
     ``parallel.mesh.replicated``), ``d2h_bytes`` (bytes
     ``pipeline.fetch_rows`` brings back), ``detect_passes`` (counting
-    passes and detection runs, one per shard, reruns included) and
+    passes and detection runs, one per shard, reruns included),
     ``detect_blocks`` (shard-blocks detected by ``run_detect`` and
-    ``run_fused``)."""
+    ``run_fused``), ``union_calls`` (``detect()``'s union-layout
+    assemblies), ``union_card_calls`` (those whose grids were built on
+    the card) and ``union_card_bytes`` (the bytes of those grids copied
+    down into page-locked host memory; not in ``d2h_bytes``)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
