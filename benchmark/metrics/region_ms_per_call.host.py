@@ -1,0 +1,5 @@
+"""``region_ms_per_call.host``: see region_ms_per_call.py."""
+
+from benchmark.lib import spec
+
+read = spec.module("metrics", "region_ms_per_call").reader("host")

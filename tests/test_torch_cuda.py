@@ -622,7 +622,8 @@ def union_grid():
 def test_union_grids_built_on_the_card(dev, monkeypatch):
     """detect()'s union grids on the card: bit-equal to the host route,
     which a card run takes where the pinned buffers would not fit, in
-    every variable; the counters rise by one call and the grids' bytes;
+    every variable; the counters rise by one call, the grids' bytes,
+    their pinned request and their rows;
     the arrays are writable views of pinned memory, and they keep their
     values while a second detect() runs."""
     from xmhw_tpu_torch import api, utils
@@ -639,6 +640,11 @@ def test_union_grids_built_on_the_card(dev, monkeypatch):
                                                   0) == 1
     assert after["union_card_bytes"] - before.get(
         "union_card_bytes", 0) == sum(a.nbytes for a in grids.values())
+    assert after["union_pinned_bytes"] - before.get(
+        "union_pinned_bytes", 0) == api._pinned_bytes(
+        [a.nbytes for a in grids.values()])
+    assert after["union_rows"] - before.get("union_rows", 0) == len(
+        card.coords["events"].values)
     assert torch.from_numpy(grids["duration"]).is_pinned()
 
     # no host memory to pin: the host route
@@ -646,6 +652,8 @@ def test_union_grids_built_on_the_card(dev, monkeypatch):
     host = xt.detect(*args, device=dev)
     monkeypatch.undo()
     assert utils.counts()["union_card_calls"] == after["union_card_calls"]
+    assert utils.counts()["union_pinned_bytes"] == after[
+        "union_pinned_bytes"]
     assert sorted(host.keys()) == sorted(card.keys())
     for k in host.keys():
         assert card[k].dims == host[k].dims, k

@@ -14,10 +14,17 @@ None and ``device="cuda"`` every GPU is used when more than one is
 visible (the JAX package's default); ``"cuda:0"`` or ``"cpu"`` mean one
 device. Anything else raises TypeError.
 
+Both calls first keep large host temporaries in glibc's heap
+(:func:`xmhw_tpu_torch.xrlite.alloc.tune_malloc`, as the streamed
+functions do): the land check, gathers and fetches of a daily grid
+allocate hundreds of MB a call, which would otherwise be mapped afresh
+and page-faulted in on every call.
+
 Under a profiler (:func:`xmhw_tpu_torch.utils.trace`) each call and its
 host stages are ``xmhw/`` spans: ``threshold``, ``detect``,
 ``land_check``, ``align_clim`` and ``assemble`` (the output Dataset's
-build), around those of ``core/pipeline.py``.
+build; in the union layout on a grid, ``union_geometry`` and
+``union_grids`` inside it), around those of ``core/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from .exception import XmhwException
 from .utils import count, in_span, span
 from .xrlite import Coord, DataArray, Dataset, TimeIndex, unstack_cell
 from .xrlite.adapt import as_dataarray
+from .xrlite.alloc import tune_malloc
 
 __all__ = ["threshold", "detect", "land_check", "flip_cold"]
 
@@ -154,6 +162,7 @@ def threshold(
       (see the module docstring), ``device``.
     """
     dev = mesh_device(mesh, device)
+    tune_malloc()
     temp = as_dataarray(temp)
     if smoothPercentileWidth % 2 == 0:
         raise XmhwException("smoothPercentileWidth should be odd")
@@ -349,6 +358,7 @@ def detect(
     system, once the array dies.
     """
     dev = mesh_device(mesh, device)
+    tune_malloc()
     temp = as_dataarray(temp)
     th = as_dataarray(th)
     se = as_dataarray(se)
@@ -505,15 +515,24 @@ def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs, dev=None):
     from .xrlite.dataarray import grid_positions
 
     count("union_calls")
-    labels = tables["event"]  # (K, C)
-    union, rows, cols, valid = _union_geometry(labels)
-    # np.take at the flat positions gathers the entries tab[valid] gives,
-    # in the same order, several times faster than the mask
-    flat = np.flatnonzero(valid)
-    parts = {name: _union_values(name, np.take(tab, flat), time_vals,
-                                 _TIME_LIKE)
-             for name, tab in tables.items()}
+    with span("union_geometry"):
+        labels = tables["event"]  # (K, C)
+        union, rows, cols, valid = _union_geometry(labels)
+        # np.take at the flat positions gathers the entries tab[valid]
+        # gives, in the same order, several times faster than the mask
+        flat = np.flatnonzero(valid)
+        parts = {name: _union_values(name, np.take(tab, flat), time_vals,
+                                     _TIME_LIKE)
+                 for name, tab in tables.items()}
+        if not point:
+            cell_coords = _cell_coords(ts)
+            grid_dims = sorted(cell_coords)
+            flat_pos, uniques, grid_shape = grid_positions(cell_coords,
+                                                           grid_dims)
+            G = int(np.prod(grid_shape))
+            fidx = rows * G + flat_pos[cols]
     E = len(union)
+    count("union_rows", E)
     ev_coord = Coord(("events",), union)
     ds = Dataset()
 
@@ -527,23 +546,21 @@ def _assemble_events(tables, time_vals, point, ts, tdim, ds_attrs, dev=None):
                               {"events": ev_coord})
         return ds
 
-    cell_coords = _cell_coords(ts)
-    grid_dims = sorted(cell_coords)
-    flat_pos, uniques, grid_shape = grid_positions(cell_coords, grid_dims)
-    G = int(np.prod(grid_shape))
-    fidx = rows * G + flat_pos[cols]
     coords = {"events": ev_coord}
     for d in grid_dims:
         coords[d] = Coord((d,), uniques[d], ds_attrs.get(d, {}))
     shape = (E,) + grid_shape
-    if _union_on_card(dev, [E * G * np.dtype(dt).itemsize
-                            for _, _, dt in parts.values()]):
-        grids = _union_grids_card(parts, fidx, shape, dev)
-    else:
-        grids = {}
-        for name, (tv, fill, dt) in parts.items():
-            grids[name] = out = alloc_filled(shape, fill, dt)
-            out.reshape(-1)[fidx] = tv
+    grid_bytes = [E * G * np.dtype(dt).itemsize for _, _, dt in
+                  parts.values()]
+    with span("union_grids"):
+        if _union_on_card(dev, grid_bytes):
+            count("union_pinned_bytes", _pinned_bytes(grid_bytes))
+            grids = _union_grids_card(parts, fidx, shape, dev)
+        else:
+            grids = {}
+            for name, (tv, fill, dt) in parts.items():
+                grids[name] = out = alloc_filled(shape, fill, dt)
+                out.reshape(-1)[fidx] = tv
     for name, out in grids.items():
         ds[name] = DataArray(out, ("events", *grid_dims), coords)
     return ds
@@ -558,8 +575,13 @@ def _union_on_card(dev, grid_bytes):
     builds the grids in pageable memory."""
     if dev is None or torch.device(dev).type != "cuda":
         return False
-    pinned = sum(1 << (b - 1).bit_length() for b in grid_bytes if b)
-    return pinned <= _host_available()
+    return _pinned_bytes(grid_bytes) <= _host_available()
+
+
+def _pinned_bytes(grid_bytes):
+    """The page-locked bytes that grids of ``grid_bytes`` ask of PyTorch's
+    caching host allocator: each rounded up to a power of two."""
+    return sum(1 << (b - 1).bit_length() for b in grid_bytes if b)
 
 
 def _host_available():

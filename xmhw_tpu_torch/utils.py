@@ -125,9 +125,12 @@ def count(name: str, n=1):
     passes and detection runs, one per shard, reruns included),
     ``detect_blocks`` (shard-blocks detected by ``run_detect`` and
     ``run_fused``), ``union_calls`` (``detect()``'s union-layout
-    assemblies), ``union_card_calls`` (those whose grids were built on
-    the card) and ``union_card_bytes`` (the bytes of those grids copied
-    down into page-locked host memory; not in ``d2h_bytes``)."""
+    assemblies), ``union_rows`` (the events rows of those assemblies,
+    summed), ``union_card_calls`` (those whose grids were built on the
+    card), ``union_card_bytes`` (the bytes of those grids copied down
+    into page-locked host memory; not in ``d2h_bytes``) and
+    ``union_pinned_bytes`` (the page-locked bytes those grids ask of the
+    caching host allocator, each grid rounded up to a power of two)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
