@@ -675,6 +675,63 @@ def test_union_grids_built_on_the_card(dev, monkeypatch):
     assert grids["duration"][0, 1, 1] == 7.0
 
 
+def test_land_check_compacts_into_pinned_memory(dev, monkeypatch):
+    """threshold() + detect() on the card: every land check of the pair
+    writes page-locked memory, and the series run_clim and run_detect get
+    is that buffer; the outputs equal the plain-memory route's; a second
+    pair reuses the cached buffer and leaves the first pair's results as
+    they were."""
+    from xmhw_tpu_torch import api, utils
+
+    da = union_grid()
+    seen = []  # (stage, pinned, address): holding the arrays would
+    # keep their buffers from the cache
+
+    def spy(name, fn):
+        def inner(ts_np, *a, **kw):
+            seen.append((name, torch.from_numpy(ts_np).is_pinned(),
+                         ts_np.ctypes.data))
+            return fn(ts_np, *a, **kw)
+        return inner
+
+    monkeypatch.setattr(api, "run_clim", spy("clim", api.run_clim))
+    monkeypatch.setattr(api, "run_detect", spy("detect", api.run_detect))
+
+    def pair():
+        clim = xt.threshold(da, device=dev)
+        return clim, xt.detect(da, clim["thresh"], clim["seas"],
+                               device=dev)
+
+    before = utils.counts()
+    first = pair()
+    after = utils.counts()
+    calls = after["land_calls"] - before.get("land_calls", 0)
+    assert calls == 4
+    assert after["land_pinned_calls"] - before.get(
+        "land_pinned_calls", 0) == calls
+    assert [(n, p) for n, p, _ in seen] == [("clim", True),
+                                            ("detect", True)]
+    kept = [{k: np.asarray(ds[k].data).copy() for k in ds.keys()}
+            for ds in first]
+
+    second = pair()
+    assert len({a for _, _, a in seen}) == 1  # one cached buffer
+    assert all(p for _, p, _ in seen)
+    for ds, want in zip(first, kept):
+        for k in ds.keys():
+            assert np_same_bits(ds[k].data, want[k]), k
+
+    monkeypatch.setattr(api, "_land_pinned", lambda dev, nbytes: False)
+    n = utils.counts()["land_pinned_calls"]
+    plain = pair()
+    assert utils.counts()["land_pinned_calls"] == n
+    assert not any(p for _, p, _ in seen[-2:])
+    for a, b, c in zip(first, second, plain):
+        for k in a.keys():
+            assert np_same_bits(b[k].data, a[k].data), k
+            assert np_same_bits(c[k].data, a[k].data), k
+
+
 def f64_grid():
     """10 daily years on a 6 x 7 grid, float64, one land cell."""
     t = np.arange("2001-01-01", "2011-01-01",

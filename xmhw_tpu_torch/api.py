@@ -30,6 +30,7 @@ build; in the union layout on a grid, ``union_geometry`` and
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,11 +50,20 @@ __all__ = ["threshold", "detect", "land_check", "flip_cold"]
 
 
 @in_span("land_check")
-def land_check(temp, tdim="time", anynans=False):
+def land_check(temp, tdim="time", anynans=False, *, device=None,
+               dtype=None):
     """Stack all non-time dims into 'cell' and drop land (NaN) cells.
 
     Reference: xmhw/identify.py:482-529. Raises on time-only input, on a
     zero-length dim, and when every cell is land.
+
+    The kept cells are gathered into a new (time, cell) array by row
+    chunks on the process's torch threads (:func:`_compact`). ``device``
+    and ``dtype`` are :func:`threshold`'s and :func:`detect`'s: the
+    device their cell blocks run on, where a CUDA device puts the array
+    in page-locked memory if it fits (:func:`_land_pinned`), and their
+    compute dtype, which the array is written in. Without them the array
+    is plain memory of the series' dtype.
     """
     temp = as_dataarray(temp)
     dims = [d for d in temp.dims if d != tdim]
@@ -65,16 +75,104 @@ def land_check(temp, tdim="time", anynans=False):
     for d in dims:
         if temp.sizes[d] == 0:
             raise XmhwException(f"Dimension {d} has 0 lenght, exiting")
-    ts = temp.stack_cell(dims, "cell")
-    # drop cells that are all-NaN (or any-NaN) along the time axis
-    data = ts.data
-    tax = ts.dims.index(tdim)
-    nan = np.isnan(data)
-    drop = nan.all(axis=tax) if not anynans else nan.any(axis=tax)
-    keep = np.nonzero(~drop)[0]
+    ts = temp.stack_cell(dims, "cell")  # dims (tdim, "cell")
+    keep, data = _compact(ts.data, anynans, dtype, device)
+    # the coordinates as ts.isel(cell=keep) selects them: after the
+    # stacking each is 0-D, along tdim or along "cell"
+    coords = {}
+    for k, c in ts.coords.items():
+        idx = keep if c.dims == ("cell",) else slice(None)
+        coords[k] = Coord(c.dims, c.values[idx], c.attrs) if c.dims else c
+    return DataArray(data, ts.dims, coords, dict(ts.attrs), ts.name)
+
+
+# bytes of the series in a chunk of rows: a chunk per thread, but at
+# most the first (enough chunks to even out the threads) and at least
+# the second (a smaller series is one chunk, on the calling thread)
+_CHUNK_BYTES = (4 << 20, 1 << 20)
+# {(process id, threads): the land check's thread pool}
+_POOLS = {}
+
+
+def _each(fn, chunks):
+    """``map(fn, chunks)``, on a pool of ``torch.get_num_threads()``
+    threads where there is more than one of each. The pool is made once
+    for a process and thread count, as starting eight threads costs more
+    than a small land check's work (a forked child makes its own: the
+    parent's threads are not in it)."""
+    nt = torch.get_num_threads()
+    if nt < 2 or len(chunks) < 2:
+        return map(fn, chunks)
+    key = (os.getpid(), nt)
+    if key not in _POOLS:
+        _POOLS.clear()
+        _POOLS[key] = ThreadPoolExecutor(nt, "xmhw_land_check")
+    return _POOLS[key].map(fn, chunks)
+
+
+def _compact(data, anynans, dtype, dev):
+    """(keep, kept) of a (T, n) series: the cells with a value that is
+    not NaN (``anynans``: with no NaN), and their columns as a new (T,
+    len(keep)) array of ``dtype`` (None: ``data``'s), in page-locked
+    memory where :func:`_land_pinned` allows. Both passes, the NaN test
+    and the gather, run over row chunks on the process's torch threads
+    (:func:`_each`; numpy releases the GIL in both). Raises when no cell
+    is kept."""
+    T, n = data.shape
+    out_dt = np.dtype(dtype or data.dtype)
+    count("land_calls")
+    row = max(1, n * data.itemsize)
+    most, least = (max(1, b // row) for b in _CHUNK_BYTES)
+    rows = max(least, min(most, -(-T // torch.get_num_threads())))
+    chunks = [slice(a, min(a + rows, T)) for a in range(0, T, rows)]
+
+    def nan_test(r):
+        # a reduction with no temporary: fmax is NaN where every value
+        # is, maximum where any is
+        if anynans:
+            return np.isnan(np.maximum.reduce(data[r], axis=0))
+        return ~np.isnan(np.fmax.reduce(data[r], axis=0))
+
+    found = np.zeros(n, bool)
+    for part in _each(nan_test, chunks):
+        found |= part
+    keep = np.flatnonzero(~found if anynans else found)
     if keep.size == 0:
         raise XmhwException("All points of grid are either land or NaN")
-    return ts.isel(cell=keep)
+    shape = (T, keep.size)
+    nbytes = T * keep.size * out_dt.itemsize
+    if _land_pinned(dev, nbytes):
+        count("land_pinned_calls")
+        # a view of the tensor, which it keeps alive; page-locked from a
+        # CUDA dev (on a CPU dev the same steps, in plain memory)
+        kept = torch.empty(nbytes, dtype=torch.uint8, pin_memory=(
+            torch.device(dev).type == "cuda")).numpy().view(
+            out_dt).reshape(shape)
+    else:
+        kept = np.empty(shape, out_dt)
+
+    def gather(r):
+        if out_dt == data.dtype:
+            # every index is in range; "clip" writes straight into out,
+            # where the default "raise" buffers the chunk first
+            np.take(data[r], keep, axis=1, out=kept[r], mode="clip")
+        else:
+            np.copyto(kept[r], np.take(data[r], keep, axis=1),
+                      casting="unsafe")
+
+    for _ in _each(gather, chunks):
+        pass
+    return keep, kept
+
+
+def _land_pinned(dev, nbytes):
+    """Whether :func:`land_check` writes its ``nbytes`` of kept cells into
+    page-locked memory from PyTorch's caching host allocator, from which
+    the cell blocks' uploads are direct DMAs: the rule of
+    :func:`_union_on_card` for that one buffer (a CUDA ``dev``, and the
+    buffer rounded up to a power of two fits in the host memory
+    available)."""
+    return _union_on_card(dev, [nbytes])
 
 
 def _use_point_host() -> bool:
@@ -160,6 +258,14 @@ def threshold(
       the GPU; float64 runs the plain torch code for exact reference
       parity), ``cell_block`` (cells per step over the mesh), ``mesh``
       (see the module docstring), ``device``.
+    * On a CUDA device (with a mesh, its first device) the land check
+      writes the ocean cells' series, in ``dtype``, into page-locked
+      host memory where that fits in the host memory available, and
+      the cell blocks are uploaded from it by direct DMA. The buffer is
+      the series' bytes rounded up to a power of two (up to twice
+      them, not swappable while the call runs); PyTorch's caching host
+      allocator keeps it for the next call, not returning it to the
+      system, once the call ends.
     """
     dev = mesh_device(mesh, device)
     tune_malloc()
@@ -180,7 +286,8 @@ def threshold(
         if c in temp.coords:
             ds_attrs[c] = dict(temp.coords[c].attrs)
 
-    ts = temp if point else land_check(temp, tdim=tdim, anynans=anynans)
+    ts = temp if point else land_check(temp, tdim=tdim, anynans=anynans,
+                                       device=dev, dtype=dtype or np.float32)
     tindex = _time_index(ts, tdim)
     year_days = get_calendar(tindex)
     if year_days == 360.0:
@@ -355,7 +462,9 @@ def detect(
     rounded up to a power of two (up to twice the array's bytes, which
     cannot be swapped out while the array lives), and PyTorch's caching
     host allocator keeps the buffer for reuse, not returning it to the
-    system, once the array dies.
+    system, once the array dies. The land checks of the series and of
+    ``th``/``se`` take page-locked buffers as in :func:`threshold`,
+    cached likewise once the call ends.
     """
     dev = mesh_device(mesh, device)
     tune_malloc()
@@ -372,12 +481,14 @@ def detect(
     for c in temp.coords:
         ds_attrs[c] = dict(temp.coords[c].attrs)
 
+    dt = dtype or np.float32
     if point:
         ts, thc, sec = temp, th, se
     else:
-        ts = land_check(temp, tdim=tdim, anynans=anynans)
-        thc = land_check(th, tdim="doy", anynans=anynans)
-        sec = land_check(se, tdim="doy", anynans=anynans)
+        kw = dict(anynans=anynans, device=dev, dtype=dt)
+        ts = land_check(temp, tdim=tdim, **kw)
+        thc = land_check(th, tdim="doy", **kw)
+        sec = land_check(se, tdim="doy", **kw)
         cell_coords = _cell_coords(ts)
         ncell = ts.sizes["cell"]
         thc = _align_clim_cells(thc, cell_coords, ncell, "thresh")
@@ -386,7 +497,6 @@ def detect(
     tindex = _time_index(ts, tdim)
     doy, _ = compute_doy(tindex, keep_tstep=tstep)
 
-    dt = dtype or np.float32
     data = np.asarray(ts.data, dtype=dt)
     th_data = np.asarray(thc.data, dtype=dt)
     se_data = np.asarray(sec.data, dtype=dt)

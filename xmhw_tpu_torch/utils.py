@@ -130,7 +130,10 @@ def count(name: str, n=1):
     card), ``union_card_bytes`` (the bytes of those grids copied down
     into page-locked host memory; not in ``d2h_bytes``) and
     ``union_pinned_bytes`` (the page-locked bytes those grids ask of the
-    caching host allocator, each grid rounded up to a power of two)."""
+    caching host allocator, each grid rounded up to a power of two),
+    ``land_calls`` (``api.land_check``'s land checks of a grid) and
+    ``land_pinned_calls`` (those that wrote the kept cells into
+    page-locked host memory)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
