@@ -160,13 +160,13 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("rel", [
-    "chip_smoke.py", "bench_torch.py", "tools/h5py_standin/h5py/__init__.py"]
+    "chip_smoke.py", "tools/h5py_standin/h5py/__init__.py"]
     + sorted(str(p.relative_to(ROOT))
              for p in (ROOT / "tools").glob("torch_*.py")))
 def test_port_scripts_import_no_jax(rel):
-    """chip_smoke.py, bench_torch.py, the port's tools (the multi-process
-    dryruns among them) and the numpy stand-in for h5py run where JAX is
-    not installed."""
+    """chip_smoke.py, the port's tools (the multi-process dryruns among
+    them) and the numpy stand-in for h5py run where JAX is not
+    installed."""
     for node in ast.walk(ast.parse((ROOT / rel).read_text())):
         names = ([a.name for a in node.names]
                  if isinstance(node, ast.Import) else

@@ -6,7 +6,10 @@ and short NaN gaps goes through the JAX package's threshold() + detect()
 block_average/mhw_rank of both packages. The port's torch path on the CPU
 (``device="cpu"``) is held against the JAX device path
 (``device=True``), and the port's host path (``device=False``) against
-the JAX host path. Bars, the JAX suite's own (tests/test_stats.py:
+the JAX host path. ``test_port_chain_matches_jax`` instead feeds each
+package its own threshold() + detect() outputs, so that what the port's
+event assembly writes (coords, dims, dtypes, attrs) is what its
+statistics read. Bars, the JAX suite's own (tests/test_stats.py:
 299-334): event statistics rtol 1e-12, per-day statistics rtol 1e-9,
 counts and ranks exactly equal, return periods rtol 1e-12.
 """
@@ -56,13 +59,27 @@ def grid():
 
 
 @pytest.fixture(scope="module", params=["union", "compact"])
-def events(request, grid):
+def layout(request):
+    return request.param
+
+
+@pytest.fixture(scope="module")
+def events(grid, layout):
+    """The JAX package's threshold() + detect(): (events, intermediate)."""
     clim = xm.threshold(grid, dtype=np.float64)
     mhw, inter = xm.detect(grid, clim["thresh"], clim["seas"],
                            dtype=np.float64, intermediate=True,
-                           events_layout=request.param)
+                           events_layout=layout)
     assert np.isfinite(np.asarray(mhw["duration"].data)).sum() > 50
     return mhw, inter
+
+
+@pytest.fixture(scope="module")
+def port_events(grid, layout):
+    """The port's own threshold() + detect() on the CPU, as ``events``."""
+    clim = xt.threshold(grid, dtype=np.float64, device="cpu")
+    return xt.detect(grid, clim["thresh"], clim["seas"], dtype=np.float64,
+                     intermediate=True, events_layout=layout, device="cpu")
 
 
 def same_stats(got, want, what):
@@ -84,6 +101,19 @@ def same_stats(got, want, what):
                                    err_msg=f"{what} {k}")
 
 
+def same_ranks(got, want):
+    rank_t, ret_t = got
+    rank_j, ret_j = want
+    assert sorted(rank_t.keys()) == sorted(rank_j.keys())
+    assert "intensity_max" in rank_t.keys()
+    for k in rank_j.keys():
+        assert rank_t[k].dims == rank_j[k].dims, k
+        np.testing.assert_array_equal(rank_t[k].data, rank_j[k].data,
+                                      err_msg=k)
+        np.testing.assert_allclose(ret_t[k].data, ret_j[k].data, rtol=1e-12,
+                                   atol=0, equal_nan=True, err_msg=k)
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_block_average_matches_jax(grid, events, mode):
     mhw, inter = events
@@ -100,16 +130,29 @@ def test_block_average_matches_jax(grid, events, mode):
 @pytest.mark.parametrize("device", ["cpu", False])
 def test_mhw_rank_matches_jax(events, device):
     mhw, _ = events
-    rank_j, ret_j = xm.mhw_rank(mhw, device=bool(device))
-    rank_t, ret_t = xt.mhw_rank(mhw, device=device)
-    assert sorted(rank_t.keys()) == sorted(rank_j.keys())
-    assert "intensity_max" in rank_t.keys()
-    for k in rank_j.keys():
-        assert rank_t[k].dims == rank_j[k].dims, k
-        np.testing.assert_array_equal(rank_t[k].data, rank_j[k].data,
-                                      err_msg=k)
-        np.testing.assert_allclose(ret_t[k].data, ret_j[k].data, rtol=1e-12,
-                                   atol=0, equal_nan=True, err_msg=k)
+    same_ranks(xt.mhw_rank(mhw, device=device),
+               xm.mhw_rank(mhw, device=bool(device)))
+
+
+@pytest.mark.parametrize("stage", ["period", "cats", "split", "rank"])
+@pytest.mark.parametrize("path", ["torch", "host"])
+def test_port_chain_matches_jax(grid, events, port_events, path, stage):
+    """Each package's statistics on its own threshold() + detect()
+    outputs; ``cats`` takes that package's intermediate Dataset as
+    dstime. ``torch``: the port on the CPU against the JAX device path;
+    ``host``: both host paths."""
+    port_device = "cpu" if path == "torch" else False
+    jax_device = path == "torch"
+    (mhw_j, inter_j), (mhw_t, inter_t) = events, port_events
+    if stage == "rank":
+        same_ranks(xt.mhw_rank(mhw_t, device=port_device),
+                   xm.mhw_rank(mhw_j, device=jax_device))
+        return
+    same_stats(xt.block_average(mhw_t, device=port_device,
+                                **MODES[stage](grid, inter_t)),
+               xm.block_average(mhw_j, device=jax_device,
+                                **MODES[stage](grid, inter_j)),
+               f"{stage} {path}")
 
 
 def test_default_device_is_the_card(events):
