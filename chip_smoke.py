@@ -30,7 +30,11 @@ Phases, one or more lines each:
    float64, must give the same bits in three runs and the CPU's bits but
    for the standard deviations (float64 ``torch.sqrt`` is not always
    correctly rounded on the CPU), and is timed (``f64_scan``, which also
-   takes other versions of it to time in turns);
+   takes other versions of it to time in turns). The stats layer's two
+   kernels (block_stats: the year-bin event and day statistics of the
+   main block, 40 one-year bins) must equal their plain versions bit for
+   bit, and are timed against their bound (one log line and the
+   ``block_stats`` row of the JSON line);
 4. reference: threshold() + detect() on a small grid, on the card (float32
    kernels) against the plain torch code on the CPU; then in float64 (the
    plain versions on the card) twice, which must give the same bits, and
@@ -38,16 +42,20 @@ Phases, one or more lines each:
 5. slice: threshold(climatologyPeriod=[1983, 2012]) then detect() over a
    synthetic 40-year grid of 4,096 ocean cells; every kernel's launch
    counter must advance (the RLE's by one counting and one detect launch),
-   events must be found and no event may be lost;
+   the stats kernels' must not, events must be found and no event may be
+   lost;
 6. stats: block_average() (one-year blocks with the ts/thresh/seas day
    series, and 5-year blocks) and mhw_rank() of the slice on the card,
-   against the host numpy path;
+   against the host numpy path; the event-bin kernel launches once a
+   block_average(), the day-bin kernel not (its day path is float64);
 7. fused: run_fused on the same data, with its stats stage, must
-   reproduce the slice, its block_average and its mhw_rank;
+   reproduce the slice, its block_average and its mhw_rank; kernels 1-3
+   launch, and each stats kernel once a block;
 8. mesh: the slice's threshold() + detect() and run_fused (with its
    stats stage) over a cell mesh of [cuda:0, cuda:0], and of every GPU when
    more than one is visible: equal to the single-device runs bit for bit,
-   every kernel launched once per shard; the walls of one device and of
+   every kernel launched once per shard (the stats kernels in run_fused
+   only); the walls of one device and of
    the mesh, in turns, and the count of visible GPUs; run_fused over the
    slice twice side by side (8,192 cells: 4,096 a device), one device
    against the mesh, in turns and bit-equal; run_bound on the mesh's
@@ -121,13 +129,22 @@ says so in its first ``io:`` line: the files are then raw arrays behind an
 HDF5 signature, and tests/test_torch_h5py_standin.py holds them against
 real h5py's on the CPU.
 
+Wherever a phase counts launches, the stats kernels (``event_bins``,
+``day_bins``) must launch once per shard-block of a run_fused with a stats
+stage (the ``detect_blocks`` counter) and nowhere else: not in threshold()
++ detect(), the options, the CLI's warmup, stream_run without block
+statistics, or the staged chain (float64).
+
 Then a JSON line with one entry per kernel (``launches``: in the slice;
 kernel 1's ``long_records``: its rows at the options phase's long
 records;
 ``mesh_launches``: in the mesh phase's run on [cuda:0, cuda:0];
 ``procs_launches``: each rank's in the procs phase; ``stream_launches``:
 in the stream phase's production-width band; the event scan's
-``plain_f64_ms``: its plain version in float64), and last the line
+``plain_f64_ms``: its plain version in float64; the ``block_stats`` row's
+launches are ``{"event_bins": n, "day_bins": n}``, with
+``fused_launches`` from the fused phase and no procs count), and last the
+line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a visible CUDA device.
 """
@@ -471,7 +488,65 @@ def phase_kernels(card):
         raise AssertionError(f"float64 plain event scan: channels "
                              f"{f64['cpu']} differ from the CPU's")
     rows[-1]["plain_f64_ms"] = f64["ms"]
+    rows.append(block_stats_kernels(card, t, xt, th, se, pos, Fk, Ik,
+                                    fk["n_events"]))
     return rows
+
+
+def block_stats_kernels(card, t, xt, th, se, pos, F, I, n_events):
+    """The stats layer's two kernels (ops/block_stats.py) against their
+    plain versions at the main path's shapes, as run_fused's stats stage
+    calls them: the main block's event table in 40 one-year bins (slots
+    binned by their start day's year) and its series' day statistics with
+    the categories and NaN days. Bit for bit; each timed beside the plain
+    version, and both together against their bound. Returns the
+    ``block_stats`` row of the kernels JSON line (launches filled
+    later)."""
+    from xmhw_tpu_torch.core.features_scan import event_table
+    from xmhw_tpu_torch.core.stats import EVENT_VARS, day_block_edges
+    from xmhw_tpu_torch.ops import block_stats as bs
+
+    T = len(t)
+    table = event_table(F, I, n_events, T)
+    years = t.astype("datetime64[Y]").astype(int) + 1970
+    bins = np.arange(years[0], years[-1] + 2)
+    ybod = _t((np.searchsorted(bins, years, side="right") - 1)
+              .astype(np.int32)).to(DEV)
+    vals = [table[k] for k in EVENT_VARS]
+    calls = {
+        "event": (bs.event_bins, bs.event_bins_plain,
+                  (vals, table["time_start"], len(bins) - 1),
+                  {"lut": ybod}),
+        "day": (bs.day_bins, bs.day_bins_plain,
+                (xt, day_block_edges(years, bins), th, se, pos),
+                {"count_nans": True})}
+    moved, out = 0, {}
+    for name, (fn, plain, args, kw) in calls.items():
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        for k in want:
+            same_bits(got[k], want[k], f"block_stats {name} {k}")
+        ins = ([*vals, table["time_start"], ybod] if name == "event"
+               else [xt, th, se, pos])
+        moved += nbytes(*ins, *got.values())
+        out[name] = (cuda_ms(lambda: fn(*args, **kw)),
+                     cuda_ms(lambda: plain(*args, **kw)))
+    bms, by = bound(moved, 0)
+    log(f"kernels: block_stats: event and day bins equal the plain "
+        f"versions bit for bit; event kernel {out['event'][0]:.3f} ms "
+        f"(plain {out['event'][1]:.3f}), day kernel {out['day'][0]:.3f} ms "
+        f"(plain {out['day'][1]:.3f}); bound of both {bms:.4f} ms ({by}: "
+        f"{moved / 1e6:.1f} MB)  [{card}]")
+    return {"name": "block_stats", "route": "cuda",
+            "source": "xmhw_tpu_torch/csrc/block_stats.cu",
+            "replaces": "xmhw_tpu_torch/core/stats.py binned_event_stats, "
+                        "binned_day_stats (XLA in the JAX package)",
+            "launches": {}, "max_abs_err": 0.0,
+            "ms": out["event"][0] + out["day"][0],
+            "plain_ms": out["event"][1] + out["day"][1],
+            "kernels_ms": {"event_bins": out["event"][0],
+                           "day_bins": out["day"][0]},
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_call": NO_LIBRARY}
 
 
 def f64_scan_inputs():
@@ -903,20 +978,57 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
+STATS_KERNELS = ("event_bins", "day_bins")
+
+
 def reset_launches():
-    from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle
+    from xmhw_tpu_torch.ops import block_stats, detect_scan, doy_quantile, rle
 
     doy_quantile.reset_launches()
     detect_scan.event_stats.launches = 0
     rle.reset_launches()
+    block_stats.event_bins.launches = 0
+    block_stats.day_bins.launches = 0
 
 
 def read_launches():
-    from xmhw_tpu_torch.ops import detect_scan, doy_quantile, rle
+    from xmhw_tpu_torch.ops import block_stats, detect_scan, doy_quantile, rle
 
     return {"doy_quantile": doy_quantile.doy_quantile.launches,
             "rle": rle.mhw_filter.launches,
-            "detect_scan": detect_scan.event_stats.launches}
+            "detect_scan": detect_scan.event_stats.launches,
+            "event_bins": block_stats.event_bins.launches,
+            "day_bins": block_stats.day_bins.launches}
+
+
+def stats_part(launches):
+    """The stats kernels' launches of a read_launches() dict."""
+    return {k: launches.get(k, 0) for k in STATS_KERNELS}
+
+
+def counts():
+    """A copy of the port's counters (:func:`xmhw_tpu_torch.utils.counts`)."""
+    from xmhw_tpu_torch.utils import counts as now
+
+    return now()
+
+
+def blocks_since(before):
+    """The shard-blocks detected (``detect_blocks``) since the counters
+    ``before``: one stats launch of each kernel apiece in a run_fused
+    with a stats stage."""
+    return counts().get("detect_blocks", 0) - before.get("detect_blocks", 0)
+
+
+def check_launches(what, launches, stats=0):
+    """Kernels 1-3 launched, and each stats kernel ``stats`` times (0: a
+    path without a stats stage, or a float64 one)."""
+    missing = [k for k, v in launches.items()
+               if v == 0 and k not in STATS_KERNELS]
+    got = stats_part(launches)
+    if missing or got != dict.fromkeys(STATS_KERNELS, stats):
+        raise AssertionError(f"{what}: kernels not launched: {missing}; "
+                             f"stats kernels {got}: want {stats} each")
 
 
 def phase_slice(card, da):
@@ -941,9 +1053,7 @@ def phase_slice(card, da):
         f"in {wall:.3f} s (threshold {t1 - t0:.3f} s, detect "
         f"{t2 - t1:.3f} s) = {C / wall:.1f} cells/s; launches {launches}  "
         f"[{card}]")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the slice: {missing}")
+    check_launches("slice", launches)
     from xmhw_tpu_torch.ops import rle
 
     # one block: the counting launch (no per-day output), then the detect
@@ -1036,10 +1146,17 @@ def phase_stats(card, da, clim, mhw):
     out = {}
     for label, kw in (("years", dict(dstime=dstime)),
                       ("5-year", dict(period=[1982, 2021], blockLength=5))):
+        reset_launches()
         t = time.perf_counter()
         dev = xt.block_average(mhw, device=DEV, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        # float32 event tables: one event-bin launch; the day path is
+        # float64 (plain)
+        got = stats_part(read_launches())
+        if got != {"event_bins": 1, "day_bins": 0}:
+            raise AssertionError(f"block_average {label}: stats kernels "
+                                 f"{got}: want one event-bin launch")
         host = xt.block_average(mhw, device=False, **kw)
         t2 = time.perf_counter()
         errs = stats_agree(dev, host, f"block_average {label}")
@@ -1070,7 +1187,7 @@ def phase_stats(card, da, clim, mhw):
 def phase_fused(card, da, clim, mhw, stats):
     """run_fused (one upload per block) with its stats stage must
     reproduce the slice, its block_average and its mhw_rank. Returns its
-    outputs and wall."""
+    outputs, its wall and the stats kernels' launches."""
     from xmhw_tpu_torch.core.features_scan import TABLE_VARS
 
     ocean = ocean_of(da)
@@ -1079,12 +1196,14 @@ def phase_fused(card, da, clim, mhw, stats):
     bins = np.arange(years[0], years[-1] + 2)
     ts = np.ascontiguousarray(da.data[:, ocean])
     reset_launches()
+    before = counts()
     out, wall = fused_run(da)
     th, se, tables, nev, extras = out
     launches = read_launches()
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by run_fused: {missing}")
+    blocks = blocks_since(before)
+    if blocks < 1:
+        raise AssertionError(f"run_fused counted {blocks} detect blocks")
+    check_launches("run_fused", launches, blocks)
     for name, a in (("thresh", th), ("seas", se)):
         if not np.array_equal(a, clim[name].data[:, ocean], equal_nan=True):
             raise AssertionError(f"fused {name} != slice")
@@ -1103,8 +1222,8 @@ def phase_fused(card, da, clim, mhw, stats):
     log(f"fused: run_fused reproduces the slice bit for bit and its "
         f"block_average/mhw_rank (max |diff| {errs:.3g}; {ts.shape[1]} "
         f"cells, {len(bins) - 1} year blocks, ranks of {list(RANKED)} in "
-        f"{wall:.3f} s; launches {launches})  [{card}]")
-    return out, wall
+        f"{wall:.3f} s; launches {launches}, {blocks} block(s))  [{card}]")
+    return out, wall, stats_part(launches)
 
 
 def fused_run(da, mesh=None, copies=1):
@@ -1182,7 +1301,8 @@ def phase_mesh(card, da, clim, mhw, fused):
     and every kernel must launch once per shard. Walls of one device and
     of the mesh, in turns. Kernel 4 on the mesh's shards of the slice's
     exceedance mask (make_cell_array). Returns each kernel's launches in
-    the mesh run of threshold() + detect() (kernel 4: on the shards)."""
+    the mesh run of threshold() + detect() (kernel 4: on the shards; the
+    stats kernels: in the [cuda:0, cuda:0] run_fused, as ``block_stats``)."""
     import torch
 
     from xmhw_tpu_torch.core.calendar import compute_doy
@@ -1195,10 +1315,13 @@ def phase_mesh(card, da, clim, mhw, fused):
     meshes = {"[cuda:0, cuda:0]": cell_mesh([one, one])}
     if n_dev > 1:
         meshes[f"all {n_dev} GPUs"] = cell_mesh()
-    counts = None
+    first_counts = stats = None
     for label, mesh in meshes.items():
         n = len(mesh)
-        want = {"doy_quantile": n, "rle": 2 * n, "detect_scan": n}
+        want = {"doy_quantile": n, "rle": 2 * n, "detect_scan": n,
+                "event_bins": 0, "day_bins": 0}
+        # run_fused: one step of n shards, each with its stats stage
+        want_fused = dict(want, event_bins=n, day_bins=n)
 
         def mesh_slice():
             c, m, w = slice_run(da, mesh=mesh)
@@ -1217,23 +1340,26 @@ def phase_mesh(card, da, clim, mhw, fused):
         if got != want or by_mode["count"] != n:
             raise AssertionError(f"mesh {label} launches {got} (rle by mode "
                                  f"{by_mode}): want {want}, one per shard")
-        counts = counts or got
+        first_counts = first_counts or got
         walls = {"one": [], "mesh": []}
         for who in ("one", "mesh", "mesh", "one"):
             walls[who].append(mesh_slice() if who == "mesh" else
                               slice_run(da, device=one)[2])
         reset_launches()
         out, w = fused_run(da, mesh=mesh)
-        if read_launches() != want:
+        fused_got = read_launches()
+        if fused_got != want_fused:
             raise AssertionError(f"mesh {label} run_fused launches "
-                                 f"{read_launches()}: want {want}")
+                                 f"{fused_got}: want {want_fused}")
+        stats = stats or stats_part(fused_got)
         same_fused(fused[0], out, f"mesh {label} run_fused")
         log(f"mesh: {label}: threshold+detect equal the single-device "
             f"slice bit for bit; first mesh run {first:.3f} s, then walls "
             f"in turns: one device {walls['one'][0]:.3f}, "
             f"{walls['one'][1]:.3f} s, mesh {walls['mesh'][0]:.3f}, "
             f"{walls['mesh'][1]:.3f} s; run_fused with stats and ranks "
-            f"bit-equal in {w:.3f} s (one device {fused[1]:.3f} s); "
+            f"bit-equal in {w:.3f} s (one device {fused[1]:.3f} s, stats "
+            f"kernels {stats_part(fused_got)}); "
             f"launches {got} (one per shard); {n_dev} CUDA device(s) "
             f"visible  [{card}]")
     # at twice the slice's width each device gets a 4,096-cell block, the
@@ -1271,7 +1397,7 @@ def phase_mesh(card, da, clim, mhw, fused):
         f"{[tuple(t.shape) for t in shards]} of the slice's exceedance mask "
         f"(make_cell_array): bit-equal to plain, {bounds} launches  "
         f"[{card}]")
-    return dict(counts, run_bound=bounds)
+    return dict(first_counts, run_bound=bounds, block_stats=stats)
 
 
 def phase_procs(card, years=40, cells=CELLS, k=K):
@@ -1621,9 +1747,7 @@ def option_pair(da, thr_kw, det_kw, what, lats=OPTION_LATS):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = read_launches()
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"{what}: kernels not launched: {missing}")
+    check_launches(what, launches)
     with plain_route():
         plain = api_run(sub, thr_kw, det_kw)
     errs = outputs_agree(kern, plain, what)
@@ -1803,9 +1927,7 @@ def phase_cli(card):
         raise AssertionError("warmup returned non-zero")
     wall = time.perf_counter() - t
     launches = read_launches()
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by warmup: {missing}")
+    check_launches("warmup", launches)
     log(f"cli: warmup in {wall:.3f} s; launches {launches}  [{card}]")
 
 
@@ -1938,6 +2060,7 @@ def stream_files(card, d, dev, nlat, nlon, t):
         p = {k: str(d / f"{how}_{k}.nc") for k in ("clim", "mhw", "block",
                                                    "rank")}
         reset_launches()
+        before = counts()
         t0 = time.perf_counter()
         if how == "stream_run":
             out = xt.stream_run(src, "sst", p["clim"], p["mhw"],
@@ -1953,9 +2076,9 @@ def stream_files(card, d, dev, nlat, nlon, t):
                 p["mhw"], p["rank"], device=dev)[1]})
         wall = time.perf_counter() - t0
         launches = read_launches()
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched by {how}: {missing}")
+        # the staged chain's block statistics are float64: no stats kernel
+        check_launches(how, launches, blocks_since(before)
+                       if how == "stream_run" else 0)
         runs[how] = out
         log(f"stream: {how} file to file in {wall:.3f} s = "
             f"{n / wall:.1f} cells/s (land included); launches {launches}"
@@ -2117,10 +2240,7 @@ def stream_gaps(card, d, dev, nlat=48, nlon=64, rows=16):
                       stripe=rows, **kw)
         wall = time.perf_counter() - t0
         launches = read_launches()
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched by the gap run "
-                                 f"({how}): {missing}")
+        check_launches(f"the gap run ({how})", launches)
         outs[how] = (p, wall, launches)
     for k in ("clim", "mhw"):
         assert_files_equal(outs["mesh"][0][k], outs["one device"][0][k])
@@ -2313,16 +2433,17 @@ def stream_band(card, d, dev, years=None):
         raise AssertionError(f"{stripes} stripes: want 8")
     p = {k: str(d / f"band_{k}.nc") for k in ("clim", "mhw", "block", "rank")}
     reset_launches()
+    before = counts()
     with step_clock() as clock, rss_peak() as rss:
         t0 = time.perf_counter()
         xt.stream_run(src, "sst", p["clim"], p["mhw"], block_path=p["block"],
                       rank_path=p["rank"], device=dev)
         wall = time.perf_counter() - t0
     launches = read_launches()
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing or len(clock.steps) != stripes:
-        raise AssertionError(f"band: {len(clock.steps)} device steps, "
-                             f"kernels not launched: {missing}")
+    if len(clock.steps) != stripes:
+        raise AssertionError(f"band: {len(clock.steps)} device steps, want "
+                             f"{stripes}")
+    check_launches("band", launches, blocks_since(before))
     dev_ms = clock.device_ms()
     starts = [s[0] for s in clock.steps] + [t0 + wall]
     per = [b - a for a, b in zip(starts, starts[1:])]
@@ -2374,6 +2495,7 @@ def main():
     clim, mhw, launches = phase_slice(card, da)
     stats = phase_stats(card, da, clim, mhw)
     fused = phase_fused(card, da, clim, mhw, stats)
+    fused_launches = fused[2]
     mesh_launches = phase_mesh(card, da, clim, mhw, fused)
     procs_launches = phase_procs(card)
     phase_stream_steps(card, da, clim, mhw)
@@ -2381,6 +2503,12 @@ def main():
     phase_cli(card)
     stream_launches = phase_stream(card)
     for r in rows:
+        if r["name"] == "block_stats":
+            r.update(launches=stats_part(launches),
+                     fused_launches=fused_launches,
+                     mesh_launches=mesh_launches["block_stats"],
+                     stream_launches=stats_part(stream_launches))
+            continue
         if r["name"] in launches:  # run_bound: counted in phase_kernels
             r["launches"] = launches[r["name"]]
         r["mesh_launches"] = mesh_launches[r["name"]]

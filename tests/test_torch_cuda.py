@@ -34,6 +34,9 @@ from xmhw_tpu_torch.core.calendar import (build_window_ranges,  # noqa: E402
 import xmhw_tpu_torch as xt  # noqa: E402
 from xmhw_tpu_torch.ops import _build, detect_scan, doy_quantile, rle  # noqa
 from xmhw_tpu_torch.ops import run_bound  # noqa: E402
+from xmhw_tpu_torch.ops.block_stats import (day_bins,  # noqa: E402
+                                            day_bins_plain, event_bins,
+                                            event_bins_plain)
 from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
 import test_torch_doy_edges as doy_edges  # noqa: E402
 import test_torch_rle_edges as rle_edges  # noqa: E402
@@ -402,6 +405,199 @@ def test_mesh_on_one_card_matches_single(dev):
         for k in fa[4][part]:
             np.testing.assert_array_equal(fa[4][part][k], fb[4][part][k],
                                           err_msg=f"{part} {k}")
+
+
+# year-bin event statistics: (K, C, nbins, days of the key table or 0 for
+# bins as keys, what else the case holds)
+EVENT_BIN_CASES = {
+    "shuffled": (40, 300, 7, 500, ""),
+    "bins_as_keys": (40, 300, 7, 0, ""),
+    "empty_bins": (40, 300, 12, 500, "empty"),
+    "nan_cells": (40, 300, 7, 500, "nan"),
+    "no_slots": (0, 300, 7, 500, ""),
+    "past_128": (200, 133, 5, 0, "nan"),
+}
+
+
+def event_bin_case(dev, name):
+    """Seeded event tables for :func:`event_bins`: slots in no order of
+    bin, keys below 0 and past the table's end, days outside every bin,
+    empty slots (NaN), +-inf; "empty": only bins 0-3 of 12 hold slots;
+    "nan": cells 5-9 all NaN."""
+    K, C, nbins, T, extra = EVENT_BIN_CASES[name]
+    rng = np.random.default_rng(11)
+    vals = rng.normal(1.0, 2.0, (13, K, C))
+    vals[:, rng.random((K, C)) < 0.25] = np.nan
+    vals[4][rng.random((K, C)) < 0.02] = np.inf
+    vals[2][rng.random((K, C)) < 0.02] = -np.inf
+    hi = 4 if extra == "empty" else nbins
+    if T:
+        lut = np.where(rng.random(T) < 0.1, -1, rng.integers(0, hi, T))
+        key = rng.integers(-5, T + 5, (K, C))
+        lut_t = torch.from_numpy(lut.astype(np.int32)).to(dev)
+    else:
+        key = np.where(rng.random((K, C)) < 0.1, -1,
+                       rng.integers(0, hi, (K, C)))
+        lut_t = None
+    if extra == "nan":
+        vals[:, :, 5:10] = np.nan
+    vals_t = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    return ([v for v in vals_t], torch.from_numpy(key.astype(np.int32)).to(
+        dev), nbins, lut_t)
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("name", list(EVENT_BIN_CASES))
+def test_block_event_kernel_bit_equal(dev, name, cold):
+    """The event-bin kernel equals its plain version (a running sum per bin
+    on the card) bit for bit, NaN where the plain version has NaN; one
+    launch."""
+    vals, key, nbins, lut = event_bin_case(dev, name)
+    neg = [2, 3, 4, 5, 6, 9, 10] if cold else []
+    before = event_bins.launches
+    got = event_bins(vals, key, nbins, lut=lut, negate=neg)
+    want = event_bins_plain(vals, key, nbins, lut=lut, negate=neg)
+    torch.cuda.synchronize()
+    assert event_bins.launches == before + 1
+    assert list(got) == list(want)
+    for k in want:
+        assert same_bits(got[k], want[k]), (name, k)
+    if vals[0].shape[0]:
+        assert float(got["ecount"].sum()) > 0
+
+
+# (T, C, edges, cells whose series is all NaN)
+DAY_BIN_CASES = {
+    "years": (1461, 300, (0, 365, 730, 1096, 1461), ()),
+    "no_days": (1461, 300, (0, 0, 365, 365, 1000, 1461, 1461), ()),
+    "nan_cells": (800, 130, (3, 200, 500, 799), (4, 5, 6, 129)),
+}
+
+
+@pytest.mark.parametrize("count_nans", [False, True])
+@pytest.mark.parametrize("with_cats", [False, True])
+@pytest.mark.parametrize("name", list(DAY_BIN_CASES))
+def test_block_day_kernel_bit_equal(dev, name, with_cats, count_nans):
+    """The day-bin kernel equals its plain version bit for bit: bins
+    without days (equal edges), all-NaN cells, a cell with th == se
+    (infinite or NaN categories), days past the last edge; one launch."""
+    T, C, edges, nan_cells = DAY_BIN_CASES[name]
+    rng = np.random.default_rng(12)
+    ts = rng.normal(16.0, 1.5, (T, C))
+    ts[rng.random((T, C)) < 0.03] = np.nan
+    ts[:, list(nan_cells)] = np.nan
+    th = rng.normal(17.0, 0.3, (366, C))
+    se = rng.normal(15.5, 0.3, (366, C))
+    th[:, 7] = se[:, 7]
+    pos = (np.arange(T) % 365).astype(np.int32)
+    ts_t, th_t, se_t = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                        for a in (ts, th, se))
+    clim = ((th_t, se_t, torch.from_numpy(pos).to(dev)) if with_cats
+            else (None, None, None))
+    before = day_bins.launches
+    got = day_bins(ts_t, edges, *clim, count_nans=count_nans)
+    want = day_bins_plain(ts_t, edges, *clim, count_nans=count_nans)
+    torch.cuda.synchronize()
+    assert day_bins.launches == before + 1
+    assert list(got) == list(want)
+    for k in want:
+        assert same_bits(got[k], want[k]), (name, k)
+    if with_cats:
+        assert float(got["moderate_days"].sum()) > 0
+
+
+def test_stats_kernels_refuse_what_they_cannot_launch(dev, monkeypatch):
+    """On the card the stats kernels launch or raise TypeError: float64
+    values, a float64 climatology beside a float32 series, a key left on
+    the CPU. Nothing launches and nothing is counted."""
+    from xmhw_tpu_torch import utils
+
+    monkeypatch.setattr(utils, "_counts", {})
+    vals, key, nbins, lut = event_bin_case(dev, "shuffled")
+    ts = torch.randn((400, 50), device=dev)
+    th = torch.randn((366, 50), dtype=torch.float64, device=dev)
+    pos = torch.arange(400, dtype=torch.int32, device=dev) % 366
+    before = (event_bins.launches, day_bins.launches)
+    calls = [
+        lambda: event_bins([v.double() for v in vals], key, nbins, lut=lut),
+        lambda: event_bins(vals, key.cpu(), nbins, lut=lut),
+        lambda: day_bins(ts.double(), (0, 100, 400)),
+        lambda: day_bins(ts, (0, 100, 400), th, th, pos),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="block_stats kernel"):
+            call()
+    assert (event_bins.launches, day_bins.launches) == before
+    assert utils.counts().get("stats_calls", 0) == 0
+
+
+@pytest.mark.parametrize("dtype,use_kernels", [
+    (np.float32, None), (np.float32, False), (np.float64, None)])
+def test_run_fused_stats_route_follows_use_kernels(dev, monkeypatch, dtype,
+                                                   use_kernels):
+    """run_fused's stats stage takes the kernels by ``use_kernels_for``:
+    float32 on the card launches each once a block; ``use_kernels=False``
+    and float64 launch none and count no kernel call."""
+    from xmhw_tpu_torch import utils
+    from xmhw_tpu_torch.core.stats import day_block_edges
+
+    t = np.arange("2001-01-01", "2004-01-01", dtype="datetime64[D]")
+    doy, _ = compute_doy(TimeIndex(t))
+    years = t.astype("datetime64[Y]").astype(int) + 1970
+    bins = np.arange(years[0], years[-1] + 2)
+    ts = field(len(t), 200, seed=14).astype(dtype)
+    kw = dict(ybod_np=(years - bins[0]).astype(np.int32),
+              nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
+              count_nans=True, block=100, device="cuda")
+    pos = (doy - 1).astype(np.int32)
+    monkeypatch.setattr(utils, "_counts", {})
+    before = (event_bins.launches, day_bins.launches)
+    got = pipeline.run_fused(ts, doy, pos, use_kernels=use_kernels, **kw)[4]
+    torch.cuda.synchronize()
+    n = 2 if use_kernels is None and dtype == np.float32 else 0
+    assert (event_bins.launches - before[0],
+            day_bins.launches - before[1]) == (n, n)
+    assert utils.counts().get("stats_calls") == 4
+    assert utils.counts().get("stats_kernel_calls", 0) == 2 * n
+    assert np.nansum(got["block"]["ecount"]) > 20
+
+
+def test_fused_stats_mesh_block_20_matches_single(dev):
+    """run_fused's stats on a mesh of [cuda:0, cuda:0] at block=20 equal
+    the single-device run bit for bit (the kernels' sums do not depend on
+    the shard's width), cold spells too; each stats kernel launches once
+    per shard."""
+    from xmhw_tpu_torch.core.stats import day_block_edges
+    from xmhw_tpu_torch.parallel import cell_mesh
+
+    t = np.arange("2001-01-01", "2005-01-01", dtype="datetime64[D]")
+    doy, _ = compute_doy(TimeIndex(t))
+    years = t.astype("datetime64[Y]").astype(int) + 1970
+    ts = field(len(t), 300, seed=13)
+    ts[:, 3] = np.nan
+    pos = (doy - 1).astype(np.int32)
+    bins = np.arange(years[0], years[-1] + 2)
+    kw = dict(ybod_np=(years - bins[0]).astype(np.int32),
+              nbins=len(bins) - 1, day_edges=day_block_edges(years, bins),
+              count_nans=True, device="cuda")
+    for cold in (False, True):
+        out = {}
+        for label, mkw in (("single", {}),
+                           ("mesh", {"mesh": cell_mesh(["cuda:0", "cuda:0"]),
+                                     "block": 20})):
+            before = (event_bins.launches, day_bins.launches)
+            fused = pipeline.run_fused(ts, doy, pos, cold_spells=cold,
+                                       **kw, **mkw)
+            torch.cuda.synchronize()
+            out[label] = (fused[4], (event_bins.launches - before[0],
+                                     day_bins.launches - before[1]))
+        (a, la), (b, lb) = out["single"], out["mesh"]
+        assert la == (1, 1) and lb == (30, 30)
+        assert np.nansum(a["block"]["ecount"]) > 50
+        for part in ("block", "day"):
+            assert sorted(a[part]) == sorted(b[part])
+            for k in a[part]:
+                assert np_same_bits(a[part][k], b[part][k]), (cold, part, k)
 
 
 def test_kernels_on_a_second_card(dev):

@@ -55,7 +55,7 @@ PORTED = {
                      "_rank_device", "_stats_device"},
     "identify.py": {"runavg", "mhw_filter"},
     "stream.py": {"stream_threshold", "stream_detect", "stream_block_average",
-                  "stream_rank", "stream_run", "_cats_kernel", "_kcache_file"},
+                  "stream_rank", "stream_run", "_kcache_file"},
     "__main__.py": {"main", "_warmup", "build_parser"},
     # runavg_circular_np wraps a window wider than the axis (12 monthly
     # rows), which the JAX package's copy cuts short
@@ -68,9 +68,11 @@ PORTED = {
 # card); the rest of each, its methods' docstrings too, is held to the
 # original's syntax tree
 NEW_DOCSTRING = {"stream.py": {"_prefetched", "_WriteBehind"}}
-# top-level names of the original that the port leaves out: the jit cache
-# of _cats_kernel, and the JAX compile-cache switch (torch has none)
-DROPPED = {"stream.py": {"_cats_jit"},
+# top-level names of the original that the port leaves out: _cats_kernel
+# and its jit cache (the port's day statistics compute the categories
+# inline, ops/block_stats.day_bins), and the JAX compile-cache switch
+# (torch has none)
+DROPPED = {"stream.py": {"_cats_kernel", "_cats_jit"},
            "__main__.py": {"_enable_compile_cache"}}
 FN_SUBS = {"stats_api.py": [("years_coord, removeMissing)\n        dy_idx",
                              "years_coord, removeMissing,\n"

@@ -14,8 +14,9 @@ sharded block, so a mesh run gives the single-device run's tables.
 
 float32 on the GPU runs the three CUDA kernels (clim percentile, event
 RLE, event scan); float64, or ``use_kernels=False``, runs the plain torch
-code. The stats stage of :func:`run_fused` is torch reductions
-(core/stats.py). CPU tensors always take the plain versions.
+code. The stats stage of :func:`run_fused` (:func:`fused_stats`) takes
+the two year-bin kernels of ``ops/block_stats.py`` by the same rule and
+override. CPU tensors always take the plain versions.
 
 Each block function and each of its host stages runs in an ``xmhw/``
 span (:func:`xmhw_tpu_torch.utils.span`: ``run_clim``, ``run_detect``,
@@ -406,7 +407,7 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
 
 @in_span("fused_stats")
 def fused_stats(table, ts, th, se, doy_pos, ybod, nbins, day_edges,
-                count_nans, rank_names, cold):
+                count_nans, rank_names, cold, kernels):
     """The stats layer on a device-resident detect output: the year-block
     event aggregations (reference: xmhw/stats.py:322-363), the per-day
     ts/category block stats (stats.py:366-428) and the per-cell ordinal
@@ -422,31 +423,32 @@ def fused_stats(table, ts, th, se, doy_pos, ybod, nbins, day_edges,
     to rank (empty: no ranks). ``cold``: negate the intensities (not the
     variances) before aggregating and ranking, as flip_cold does to the
     staged detect output (reference: xmhw/features.py:298-315).
+    ``kernels``: the year-bin statistics are
+    :func:`ops.block_stats.event_bins` and :func:`ops.block_stats.day_bins`
+    (one kernel launch each on the card), else their plain versions.
     Returns {"block": {...}, "day": {...}, "rank": {...}} for the
     enabled stages.
     """
-    from .stats import (EVENT_VARS, binned_day_stats, binned_event_stats,
-                        category_index, rank_events_desc)
+    from ..ops.block_stats import bins_for
+    from .stats import EVENT_VARS, rank_events_desc
 
-    T, dt = ts.shape[0], ts.dtype
+    dt = ts.dtype
+
+    def flips(name):
+        return cold and "intensity" in name and "_var" not in name
 
     def flip(name, v):
-        if cold and "intensity" in name and "_var" not in name:
-            return -v
-        return v
+        return -v if flips(name) else v
 
     out = {}
     if nbins:
-        tstart = table["time_start"]
-        bin_idx = ybod[torch.clamp(tstart, 0, T - 1).long()]
-        valid = (tstart >= 0) & (bin_idx >= 0)
-        vals = torch.stack([flip(k, table[k]).to(dt) for k in EVENT_VARS])
-        out["block"] = binned_event_stats(
-            vals, torch.clamp(bin_idx, 0, nbins - 1), valid, nbins)
-        pos = doy_pos.long()
-        cats = category_index(ts, th[pos], se[pos])
-        out["day"] = binned_day_stats(ts, cats, day_edges, with_cats=True,
-                                      count_nans=count_nans)
+        event_bins, day_bins = bins_for(kernels)
+        out["block"] = event_bins(
+            [table[k].to(dt) for k in EVENT_VARS], table["time_start"],
+            nbins, lut=ybod,
+            negate=[i for i, k in enumerate(EVENT_VARS) if flips(k)])
+        out["day"] = day_bins(ts, day_edges, th, se, doy_pos,
+                              count_nans=count_nans)
     if rank_names:
         ones = torch.ones(table["time_start"].shape, dtype=torch.bool,
                           device=ts.device)
@@ -574,7 +576,7 @@ def run_fused(ts_np, doy_np, doy_pos_np, *, w=5, ndoy=366, pctile=90,
         outs, K = _detect_retry(ins, K, cap, False, det_kw)
         sts = [fused_stats(tbl, x_day, th, se, pos, ybod[d], nbins,
                            day_edges, count_nans, tuple(rank_names),
-                           cold_spells)
+                           cold_spells, kernels)
                if nbins or rank_names else {}
                for (tbl, _, _), x_day, (_, th, se, pos), (d, _, _)
                in zip(outs, days, ins, shards)]

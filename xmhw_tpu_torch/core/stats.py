@@ -16,6 +16,11 @@ No reduction is a ``scatter_add_`` or ``index_add_``, and float sums
 are running sums (:func:`core.clim.ordered_sum`), so each output's order
 of float adds is fixed from run to run and from one block width to
 another.
+
+The two binned reductions are the plain versions of the stats layer's
+CUDA kernels (:mod:`xmhw_tpu_torch.ops.block_stats`), which the callers
+go through: float32 on the card launches the kernels, one per half,
+with the same order of float adds.
 """
 
 from __future__ import annotations
@@ -109,6 +114,17 @@ def binned_event_stats(values, bin_idx, valid, nbins):
     return {n: torch.stack(r) for n, r in rows.items()}
 
 
+def day_stat_names(with_cats=False, count_nans=False):
+    """The rows of :func:`binned_day_stats`, in its order."""
+    names = ["ts_mean", "ts_max", "ts_min"]
+    if with_cats:
+        names += ["moderate_days", "strong_days", "severe_days",
+                  "extreme_days", "total_days"]
+    if count_nans:
+        names += ["nan_days"]
+    return names
+
+
 def binned_day_stats(ts, cats, edges, with_cats=False, count_nans=False):
     """Per-day year-block statistics on the device: the other half of
     block_average (reference: xmhw/stats.py:366-428, agg_ts/agg_cats).
@@ -122,13 +138,7 @@ def binned_day_stats(ts, cats, edges, with_cats=False, count_nans=False):
     """
     dt = ts.dtype
     nan = torch.tensor(float("nan"), dtype=dt, device=ts.device)
-    names = ["ts_mean", "ts_max", "ts_min"]
-    if with_cats:
-        names += ["moderate_days", "strong_days", "severe_days",
-                  "extreme_days", "total_days"]
-    if count_nans:
-        names += ["nan_days"]
-    rows = {n: [] for n in names}
+    rows = {n: [] for n in day_stat_names(with_cats, count_nans)}
     for i in range(len(edges) - 1):
         seg = ts[edges[i]:edges[i + 1]]
         fin = torch.isfinite(seg)

@@ -42,6 +42,8 @@ SIGNATURES = {
     "xmhw_event_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P),
     "xmhw_run_bound": (_P, _I, _I, _I, _P, _P),
+    "xmhw_block_event_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _P),
+    "xmhw_block_day_stats": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 

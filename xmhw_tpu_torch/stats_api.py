@@ -306,16 +306,17 @@ def block_average(
     for d in grid_dims:
         coords[d] = mhw[mtime].coords[d]
     if dev is not None:
-        from .core.stats import EVENT_VARS, binned_event_stats
+        from .core.pipeline import use_kernels_for
+        from .core.stats import EVENT_VARS
+        from .ops.block_stats import bins_for
 
         vals = np.stack([
             mhw[v].data.reshape(flat_years.shape) for v in EVENT_VARS
         ]).astype(mhw["duration"].data.dtype, copy=False)
-        res = fetch_rows(binned_event_stats(
-            torch.from_numpy(vals).to(dev),
-            torch.from_numpy(bin_idx.astype(np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(flat_valid)).to(dev),
-            nbins))
+        key = np.where(flat_valid, bin_idx, -1).astype(np.int32)
+        event_bins, _ = bins_for(use_kernels_for(vals.dtype, dev))
+        res = fetch_rows(event_bins(torch.from_numpy(vals).to(dev),
+                                    torch.from_numpy(key).to(dev), nbins))
         for oname, arr in res.items():
             out[oname] = DataArray(
                 arr.reshape((nbins,) + grid_shape),

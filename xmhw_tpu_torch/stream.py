@@ -1194,8 +1194,9 @@ def stream_block_average(
     SST file) the per-day ts stats are added; with ``clim_path`` too, the
     category-day counts (cats = floor(1+(ts-th)/(th-se)), reference
     stats.py:225-231). Both halves run on device per stripe: event
-    aggregations via core/stats.binned_event_stats, per-day stats via
-    core/stats.binned_day_stats. Host memory stays O(stripe).
+    aggregations via ops/block_stats.event_bins, per-day stats via
+    ops/block_stats.day_bins (float64: their plain versions,
+    core/stats.binned_*). Host memory stays O(stripe).
     ``resume=True`` picks up an interrupted run from the per-stripe
     watermark on the output file (see :func:`stream_run`).
     ``device``: where both halves run (default ``"cuda"``); the event
@@ -1416,23 +1417,24 @@ def _block_stats_step(vals, bin_idx, valid, nbins, dev, ts=None, th=None,
     (``bin_idx``/``valid``: (K, cells) host arrays), in float64 there
     too; with ``ts`` ((T, cells) float64) the per-day statistics, and
     with ``th``/``se`` ((ndoy, cells)) and ``doy_pos`` ((T,) long tensor
-    on ``dev``) the category days. One upload per array and ONE
-    download. Returns (event stats, day stats or None), numpy dicts of
-    (nbins, cells)."""
-    from .core.pipeline import fetch_rows
-    from .core.stats import binned_day_stats, binned_event_stats
+    on ``dev``) the category days (ops/block_stats.py, by
+    ``use_kernels_for``: float64 takes the plain versions). One upload
+    per array and ONE download. Returns
+    (event stats, day stats or None), numpy dicts of (nbins, cells)."""
+    from .core.pipeline import fetch_rows, use_kernels_for
+    from .ops.block_stats import bins_for
 
     def up(a):
-        return torch.from_numpy(a).to(dev)
+        return None if a is None else torch.from_numpy(a).to(dev)
 
-    parts = {("ev", k): v for k, v in binned_event_stats(
-        up(vals), up(bin_idx.astype(np.int64)), up(valid), nbins).items()}
+    key = np.where(valid, bin_idx, -1).astype(np.int32)
+    event_bins, _ = bins_for(use_kernels_for(vals.dtype, dev))
+    parts = {("ev", k): v
+             for k, v in event_bins(up(vals), up(key), nbins).items()}
     if ts is not None:
-        ts_b = up(ts)
-        cats_b = (_cats_kernel(ts_b, up(th), up(se), doy_pos)
-                  if th is not None else torch.zeros_like(ts_b))
-        parts.update({("day", k): v for k, v in binned_day_stats(
-            ts_b, cats_b, edges, with_cats=th is not None,
+        _, day_bins = bins_for(use_kernels_for(ts.dtype, dev))
+        parts.update({("day", k): v for k, v in day_bins(
+            up(ts), edges, up(th), up(se), doy_pos,
             count_nans=count_nans).items()})
     got = fetch_rows(parts)
     ev = {k: v for (h, k), v in got.items() if h == "ev"}
@@ -1451,15 +1453,6 @@ def _rank_stack(a):
     flat = a.permute(1, 0, 2).reshape(K, -1)
     r = rank_events_desc(flat, torch.ones_like(flat, dtype=torch.bool))
     return r.reshape(K, V, -1).permute(1, 0, 2)
-
-
-def _cats_kernel(ts, th, se, doy_pos):
-    """Per-day category series on device
-    (cats = floor(1+(ts-th)/(th-se)), reference stats.py:225-231).
-    ``doy_pos``: (T,) long tensor, the climatology row of each day."""
-    from .core.stats import category_index
-
-    return category_index(ts, th[doy_pos], se[doy_pos])
 
 
 def stream_rank(

@@ -131,9 +131,11 @@ def count(name: str, n=1):
     into page-locked host memory; not in ``d2h_bytes``) and
     ``union_pinned_bytes`` (the page-locked bytes those grids ask of the
     caching host allocator, each grid rounded up to a power of two),
-    ``land_calls`` (``api.land_check``'s land checks of a grid) and
+    ``land_calls`` (``api.land_check``'s land checks of a grid),
     ``land_pinned_calls`` (those that wrote the kept cells into
-    page-locked host memory)."""
+    page-locked host memory), ``stats_calls`` (the stats layer's binned
+    calls, ``ops.block_stats.event_bins`` and ``day_bins``) and
+    ``stats_kernel_calls`` (those that launched a kernel)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
