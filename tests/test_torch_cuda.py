@@ -688,6 +688,20 @@ def test_stats_on_card_match_host(dev):
             np.testing.assert_array_equal(rp[k].data, hp[k].data, err_msg=k)
 
 
+@pytest.mark.parametrize("cell_block", [65536, 7], ids=["one", "blocks"])
+def test_ranks_on_card_in_cell_blocks_match_host(dev, cell_block):
+    """mhw_rank on the card, in one cell block or several: ranks and
+    return periods equal the host path's bit for bit."""
+    _, mhw, union, _ = stats_events(dev)
+    for ev in (mhw, union):
+        hk, hp = xt.mhw_rank(ev, device=False)
+        rk, rp = xt.mhw_rank(ev, device="cuda", cell_block=cell_block)
+        assert sorted(rk.keys()) == sorted(hk.keys())
+        for k in hk.keys():
+            np.testing.assert_array_equal(rk[k].data, hk[k].data, err_msg=k)
+            np.testing.assert_array_equal(rp[k].data, hp[k].data, err_msg=k)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((10, 4), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):

@@ -22,9 +22,10 @@ and page-faulted in on every call.
 
 Under a profiler (:func:`xmhw_tpu_torch.utils.trace`) each call and its
 host stages are ``xmhw/`` spans: ``threshold``, ``detect``,
-``land_check``, ``align_clim`` and ``assemble`` (the output Dataset's
+``land_check``, ``align_clim``, ``assemble`` (the output Dataset's
 build; in the union layout on a grid, ``union_geometry`` and
-``union_grids`` inside it), around those of ``core/pipeline.py``.
+``union_grids`` inside it) and ``assemble_inter`` (the intermediate
+Dataset's), around those of ``core/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -790,10 +791,11 @@ def _assemble_events_compact(tables, n_events, time_vals, point, ts, tdim,
     return ds
 
 
-@in_span("assemble")
+@in_span("assemble_inter")
 def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None):
     """Per-day intermediate Dataset (reference: xmhw.py:471-478;
-    point-mode keeps the pandas 'index' dim name, grid mode uses time)."""
+    point-mode keeps the pandas 'index' dim name, grid mode uses time).
+    Counts the bytes of the arrays it builds in ``inter_grid_bytes``."""
     dimname = "index" if point else "time"
     tattrs = {}
     if tindex is not None and not np.issubdtype(
@@ -824,6 +826,7 @@ def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None):
             for d in grid_dims:
                 coords[d] = Coord((d,), uniques[d])
             ds[name] = DataArray(full, (dimname, *grid_dims), coords)
+    count("inter_grid_bytes", sum(ds[k].data.nbytes for k in ds.keys()))
     return ds
 
 

@@ -22,10 +22,11 @@ Each block function and each of its host stages runs in an ``xmhw/``
 span (:func:`xmhw_tpu_torch.utils.span`: ``run_clim``, ``run_detect``,
 ``run_fused``, ``fused_threshold_detect``, ``clim_tables``,
 ``upload``, ``count_k``, ``detect_retry``, ``fused_stats``,
-``fetch_rows``, ``store``), so a profiler's trace names the host work
-under each idle stretch of the device; the counters ``h2d_bytes``,
-``d2h_bytes``, ``detect_passes`` and ``detect_blocks``
-(:func:`xmhw_tpu_torch.utils.counts`) count the copies and passes.
+``fetch_rows``, ``store``, ``inter_store``), so a profiler's trace
+names the host work under each idle stretch of the device; the counters
+``h2d_bytes``, ``d2h_bytes``, ``detect_passes``, ``detect_blocks``,
+``inter_calls`` and ``inter_bytes`` (:func:`xmhw_tpu_torch.utils.counts`)
+count the copies, passes and intermediate outputs.
 
 The block functions read data that one process holds whole. Across
 processes (a global mesh, ``parallel.mesh``) each rank runs
@@ -344,6 +345,18 @@ def _warn_dropped(dropped, k_cap):
             "across the grid", k_cap, dropped)
 
 
+@in_span("inter_store")
+def _store_inter(out, got, lo, hi, T, C):
+    """Store one shard's fetched (T, hi - lo) intermediate arrays ``got``
+    into columns [lo, hi) of the (T, C) arrays of ``out``, made on first
+    use. Counts their bytes in ``inter_bytes``."""
+    for k, v in got.items():
+        count("inter_bytes", v.nbytes)
+        if k not in out:
+            out[k] = np.empty((T, C), v.dtype)
+        out[k][:, lo:hi] = v
+
+
 @in_span("run_detect")
 def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
                max_gap, intermediate=False, block=None, mesh=None,
@@ -370,6 +383,8 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     det_kw = dict(min_duration=min_duration, join_gaps=join_gaps,
                   max_gap=max_gap, day0_fillna_quirk=day0_fillna_quirk,
                   use_kernels=kernels)
+    if intermediate:
+        count("inter_calls")
     n_events = np.zeros(C, np.int32)
     dropped = 0
     K = cap(_round_k(int(first_k))) if first_k else None
@@ -396,11 +411,9 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
             dropped += int(np.maximum(nev - K, 0).sum())
             n_events[a:b] = np.minimum(nev, K)
             tables.put({k: fetched[("tbl", k)] for k in tbl}, a, b, K)
-            for k in inter:
-                v = fetched[("inter", k)]
-                if k not in inter_out:
-                    inter_out[k] = np.empty((T, C), v.dtype)
-                inter_out[k][:, a:b] = v
+            if inter:
+                _store_inter(inter_out, {k: fetched[("inter", k)]
+                                         for k in inter}, a, b, T, C)
     _warn_dropped(dropped, k_cap)
     return tables.arrays, n_events, inter_out
 

@@ -4,6 +4,8 @@ Port of :mod:`xmhw_tpu.stats_api`: the numpy host functions are copies
 (``tests/test_torch_port_guard.py`` holds them to the originals); the
 device branches of block_average, _block_ts_stats_device and
 _rank_device run torch (core/stats.py) on the device ``device`` names.
+Under a profiler each public call is an ``xmhw/`` span of its own name
+(:func:`xmhw_tpu_torch.utils.span`).
 
 Reference-compatible rebuild of xmhw/stats.py. The reference marks both as
 work-in-progress (README.rst:16-21) and ships several latent bugs; this
@@ -37,6 +39,7 @@ import torch
 
 from .core.pipeline import fetch_rows, resolve_device
 from .exception import XmhwException
+from .utils import in_span
 from .xrlite import Coord, DataArray, Dataset, TimeIndex
 from .xrlite.adapt import as_dataarray, as_dataset
 
@@ -219,6 +222,7 @@ def _flatten_cells(da, lead_dim):
     return arr.reshape(shape[0], -1), grid_dims, shape[1:]
 
 
+@in_span("block_average")
 def block_average(
     mhw,
     dstime=None,
@@ -558,6 +562,7 @@ def rank_variable(values, axis=0):
     return np.moveaxis(out.reshape(values.shape), 0, axis)
 
 
+@in_span("mhw_rank")
 def mhw_rank(mhwds, nYears=None, device=True, cell_block=65536):
     """Rank each MHW property (1 = largest) and derive return periods.
 

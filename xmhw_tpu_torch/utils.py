@@ -134,8 +134,13 @@ def count(name: str, n=1):
     ``land_calls`` (``api.land_check``'s land checks of a grid),
     ``land_pinned_calls`` (those that wrote the kept cells into
     page-locked host memory), ``stats_calls`` (the stats layer's binned
-    calls, ``ops.block_stats.event_bins`` and ``day_bins``) and
-    ``stats_kernel_calls`` (those that launched a kernel)."""
+    calls, ``ops.block_stats.event_bins`` and ``day_bins``),
+    ``stats_kernel_calls`` (those that launched a kernel),
+    ``inter_calls`` (``pipeline.run_detect`` calls with
+    ``intermediate=True``), ``inter_bytes`` (the bytes of the
+    intermediate arrays they fetch from the devices; also in
+    ``d2h_bytes``) and ``inter_grid_bytes`` (the bytes of the grids
+    ``api._assemble_inter`` builds of them)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
