@@ -37,7 +37,8 @@ from xmhw_tpu_torch.ops import run_bound  # noqa: E402
 from xmhw_tpu_torch.ops.block_stats import (day_bins,  # noqa: E402
                                             day_bins_plain, event_bins,
                                             event_bins_plain)
-from xmhw_tpu_torch.xrlite import Coord, DataArray, TimeIndex  # noqa
+from xmhw_tpu_torch.xrlite import (Coord, DataArray, Dataset,  # noqa: E402
+                                   TimeIndex)
 import test_torch_doy_edges as doy_edges  # noqa: E402
 import test_torch_rle_edges as rle_edges  # noqa: E402
 import test_torch_run_bound_edges as rb_edges  # noqa: E402
@@ -700,6 +701,50 @@ def test_ranks_on_card_in_cell_blocks_match_host(dev, cell_block):
         for k in hk.keys():
             np.testing.assert_array_equal(rk[k].data, hk[k].data, err_msg=k)
             np.testing.assert_array_equal(rp[k].data, hp[k].data, err_msg=k)
+
+
+def _tables_as(ds, dtype):
+    """``ds`` with every float table cast to ``dtype``."""
+    out = Dataset()
+    for k in ds.keys():
+        a = np.asarray(ds[k].data)
+        out[k] = ds[k].copy(data=a.astype(dtype) if a.dtype.kind == "f"
+                            else a)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ranks_land_in_pinned_memory_with_the_host_bits(dev, dtype):
+    """mhw_rank on the card, union and compact layouts, float32 and float64
+    tables: float64 ranks and return periods equal to the host path's bit
+    for bit, each call's results in page-locked memory (one
+    ``rank_pinned_calls`` a call), and a second call, after the first's
+    results are let go and its buffers return to the caching host
+    allocator, gives the same bits."""
+    from xmhw_tpu_torch import utils
+
+    _, mhw, union, _ = stats_events(dev)
+    for ev in (mhw, union):
+        ev = _tables_as(ev, dtype)
+        assert np.asarray(ev["intensity_max"].data).dtype == dtype
+        hk, hp = xt.mhw_rank(ev, device=False)
+        before = utils.counts()
+        first = xt.mhw_rank(ev, device="cuda")
+        for got, want in zip(first, (hk, hp)):
+            assert sorted(got.keys()) == sorted(want.keys())
+            for k in want.keys():
+                assert got[k].data.dtype == np.float64, k
+                np.testing.assert_array_equal(got[k].data, want[k].data,
+                                              err_msg=k)
+        bits = {k: first[0][k].data.tobytes() + first[1][k].data.tobytes()
+                for k in hk.keys()}
+        del first, got
+        rk, rp = xt.mhw_rank(ev, device="cuda")
+        for k in hk.keys():
+            assert rk[k].data.tobytes() + rp[k].data.tobytes() == bits[k], k
+        after = utils.counts()
+        for name in ("rank_calls", "rank_pinned_calls"):
+            assert after.get(name, 0) - before.get(name, 0) == 2, name
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

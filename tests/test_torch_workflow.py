@@ -255,21 +255,110 @@ def test_inter_bytes_count_every_block_of_cells(monkeypatch):
                                       np.asarray(two[k].data))
 
 
+@pytest.mark.parametrize("case", ["derived", "given_nyears",
+                                  "no_host_memory", "big_endian"])
 @pytest.mark.parametrize("cell_block", [65536, 5], ids=["one", "blocks"])
-def test_device_ranks_and_return_periods_are_the_host_path(answered,
-                                                           cell_block):
+def test_device_ranks_and_return_periods_are_the_host_path(
+        answered, cell_block, case, monkeypatch):
     """mhw_rank's device path (the torch code, here on the CPU) gives the
     numpy host path's ranks and return periods bit for bit, in one cell
-    block or in several, for float32 and float64 tables."""
+    block or in several, for float32 and float64 tables: with nYears
+    derived from the data, with a non-integer nYears given (the return
+    periods are numpy's ``(nYears + 1) / rank``), with no host memory
+    available for page-locked buffers, and with big-endian tables (as a
+    NetCDF file may hold them), which go up as float64. Each device call
+    counts one ``rank_calls``; on the CPU none lands in page-locked
+    memory."""
+    from xmhw_tpu_torch import api
+
     dtype, *_, out = answered
     mhw = out[1]
     assert np.asarray(mhw["intensity_max"].data).dtype == dtype
-    rank_d, rp_d = xt.mhw_rank(mhw, device="cpu", cell_block=cell_block)
-    rank_h, rp_h = xt.mhw_rank(mhw, device=False)
+    if case == "big_endian":
+        mhw = _tables_as(mhw, np.dtype(dtype).newbyteorder(">"))
+    kw = {"nYears": 14245 / 365.25} if case == "given_nyears" else {}
+    if case == "no_host_memory":
+        monkeypatch.setattr(api, "_host_available", lambda: 0)
+    monkeypatch.setattr(utils, "_counts", {})
+    rank_d, rp_d = xt.mhw_rank(mhw, device="cpu", cell_block=cell_block,
+                               **kw)
+    rank_h, rp_h = xt.mhw_rank(mhw, device=False, **kw)
+    assert utils.counts() == {"rank_calls": 1}
     assert sorted(rank_d.keys()) == sorted(rank_h.keys())
     assert "intensity_max" in rank_d.keys()
     for k in rank_h.keys():
         for got, want in ((rank_d[k], rank_h[k]), (rp_d[k], rp_h[k])):
             assert got.dims == want.dims and got.data.dtype == np.float64
             np.testing.assert_array_equal(got.data, want.data, err_msg=k)
+        if kw:
+            np.testing.assert_array_equal(
+                rp_d[k].data, (kw["nYears"] + 1) / rank_h[k].data, err_msg=k)
+
+
+def _tables_as(mhw, dtype):
+    """``mhw`` with every float table cast to ``dtype``."""
+    from xmhw_tpu_torch.xrlite import Dataset
+
+    ds = Dataset()
+    for k in mhw.keys():
+        a = np.asarray(mhw[k].data)
+        ds[k] = mhw[k].copy(data=a.astype(dtype) if a.dtype.kind == "f"
+                            else a)
+    return ds
+
+
+def _years_before(mhw):
+    """mhw_rank's nYears as the port derived it before it skipped the
+    year decode for datetime64 times: every entry's year decoded first."""
+    from xmhw_tpu_torch.stats_api import _years_of
+
+    try:
+        y0, v0 = _years_of(mhw["time_start"].data, mhw["time_start"].attrs)
+        y1, v1 = _years_of(mhw["time_end"].data, mhw["time_end"].attrs)
+        t0 = np.asarray(mhw["time_start"].data).reshape(-1)
+        t1 = np.asarray(mhw["time_end"].data).reshape(-1)
+        if np.issubdtype(t0.dtype, np.datetime64):
+            span = t1[~np.isnat(t1)].max() - t0[~np.isnat(t0)].min()
+            return span / np.timedelta64(1, "D") / 365.25
+        return float(y1[v1].max() - y0[v0].min() + 1)
+    except Exception:
+        return 14245 / 365.25
+
+
+def _times_as(mhw, kind):
+    """``mhw`` with its start and end times as datetime64 (as detect()
+    gives them), as calendar years (numeric times without units), or
+    all missing."""
+    from xmhw_tpu_torch.xrlite import Dataset
+
+    ds = Dataset()
+    for k in mhw.keys():
+        ds[k] = mhw[k]
+    for k in ("time_start", "time_end"):
+        t = np.asarray(mhw[k].data)
+        if kind == "years":
+            t = np.where(np.isnat(t), np.nan,
+                         t.astype("datetime64[Y]").astype(np.int64) + 1970.0)
+        elif kind == "missing":
+            t = np.full(t.shape, np.datetime64("NaT"), t.dtype)
+        ds[k] = mhw[k].copy(data=t)
+    return ds
+
+
+@pytest.mark.parametrize("kind", ["datetime64", "years", "missing"])
+def test_derived_nyears_is_the_former_formula(answered, kind):
+    """The derived nYears, which no longer decodes every entry's year for
+    datetime64 times, is the same float as before in every branch, and
+    the return periods on the device and on the host divide by it."""
+    from xmhw_tpu_torch.stats_api import _record_years
+
+    mhw = _times_as(answered[-1][1], kind)
+    want = _years_before(mhw)
+    assert _record_years(mhw) == want
+    if kind == "datetime64":
+        assert want != int(want) and want > 3
+    for device in ("cpu", False):
+        rank, rp = xt.mhw_rank(mhw, device=device)
+        np.testing.assert_array_equal(
+            rp["duration"].data, (want + 1) / np.asarray(rank["duration"].data))
 

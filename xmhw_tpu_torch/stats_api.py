@@ -39,7 +39,7 @@ import torch
 
 from .core.pipeline import fetch_rows, resolve_device
 from .exception import XmhwException
-from .utils import in_span
+from .utils import count, in_span
 from .xrlite import Coord, DataArray, Dataset, TimeIndex
 from .xrlite.adapt import as_dataarray, as_dataset
 
@@ -571,64 +571,110 @@ def mhw_rank(mhwds, nYears=None, device=True, cell_block=65536):
     constant. ``device`` as in block_average (default True: ``"cuda"``;
     False: the numpy host path): a device runs the ranking as a stable
     sort over cell blocks there (core/stats.py: rank_events_desc — exact
-    same tie semantics), the planet-scale path.
+    same tie semantics), the planet-scale path, and divides the return
+    periods there too (:func:`_rank_device`). Both paths give float64
+    ranks and return periods with the same bits.
     """
     dev = _stats_device(device)
     mhwds = as_dataset(mhwds)
     if nYears is None:
-        try:
-            y0, v0 = _years_of(mhwds["time_start"].data,
-                               mhwds["time_start"].attrs)
-            y1, v1 = _years_of(mhwds["time_end"].data,
-                               mhwds["time_end"].attrs)
-            t0 = np.asarray(mhwds["time_start"].data).reshape(-1)
-            t1 = np.asarray(mhwds["time_end"].data).reshape(-1)
-            if np.issubdtype(t0.dtype, np.datetime64):
-                span = (t1[~np.isnat(t1)].max()
-                        - t0[~np.isnat(t0)].min())
-                nYears = span / np.timedelta64(1, "D") / 365.25
-            else:
-                nYears = float(y1[v1].max() - y0[v0].min() + 1)
-        except Exception:
-            nYears = 14245 / 365.25  # reference fallback (stats.py:477-478)
-    rank = Dataset()
-    return_period = Dataset()
-    variables = [
-        k for k in mhwds.keys()
-        if not any(x in k for x in ("event", "time", "index"))
-    ]
-    for var in variables:
+        nYears = _record_years(mhwds)
+    tables = {}
+    for var in mhwds.keys():
+        if any(x in var for x in ("event", "time", "index")):
+            continue
         da = mhwds[var]
         ev_dim = "events" if "events" in da.dims else (
             "ev" if "ev" in da.dims else None)
-        if ev_dim is None:
-            continue
-        ax = da.dims.index(ev_dim)
-        if dev is not None:
-            r = _rank_device(da.data, ax, cell_block, dev)
-        else:
+        if ev_dim is not None:
+            tables[var] = (da, da.dims.index(ev_dim))
+    if dev is not None:
+        landed = _rank_device([(da.data, ax) for da, ax in tables.values()],
+                              nYears, cell_block, dev)
+    else:
+        landed = []
+        for da, ax in tables.values():
             r = rank_variable(da.data, axis=ax)
+            landed.append((r, (nYears + 1) / r))
+    rank = Dataset()
+    return_period = Dataset()
+    for (var, (da, _)), (r, rp) in zip(tables.items(), landed):
         rank[var] = da.copy(data=r)
-        return_period[var] = da.copy(data=(nYears + 1) / r)
+        return_period[var] = da.copy(data=rp)
     return rank, return_period
 
 
-def _rank_device(data, axis, cell_block, device):
-    """Device ordinal descending rank over ``axis``, cell-blocked."""
+def _record_years(mhwds):
+    """The record length in years that ``mhw_rank`` takes for ``nYears``:
+    from the first start to the last end (datetime64 times: their span in
+    days over 365.25, read from those two values alone; else the calendar
+    years they cover), or the reference's 14245 / 365.25 where the times
+    give none (stats.py:477-478)."""
+    try:
+        t0 = np.asarray(mhwds["time_start"].data).reshape(-1)
+        t1 = np.asarray(mhwds["time_end"].data).reshape(-1)
+        if np.issubdtype(t0.dtype, np.datetime64):
+            span = t1[~np.isnat(t1)].max() - t0[~np.isnat(t0)].min()
+            return span / np.timedelta64(1, "D") / 365.25
+        y0, v0 = _years_of(mhwds["time_start"].data,
+                           mhwds["time_start"].attrs)
+        y1, v1 = _years_of(mhwds["time_end"].data, mhwds["time_end"].attrs)
+        return float(y1[v1].max() - y0[v0].min() + 1)
+    except Exception:
+        return 14245 / 365.25
+
+
+def _rank_device(tables, nYears, cell_block, device):
+    """Ranks and return periods of each ``(data, axis)`` event table on
+    ``device``: a list of (rank, return period) float64 arrays, bit-equal
+    to :func:`rank_variable` and numpy's ``(nYears + 1) / rank``.
+
+    Each table goes up once in its own dtype (a float32 table is sorted as
+    float32, which orders its values as their float64 casts do; any other
+    than native float32 or float64 is cast to float64 first) and is ranked
+    over blocks of at most ``cell_block`` cells;
+    the ranks are cast to float64 and divided into ``nYears + 1`` on the
+    device (a tensor dividend: a Python scalar over a tensor rounds
+    otherwise than numpy). Both results go down without blocking into two
+    host buffers for the whole call, page-locked from a CUDA device where
+    they fit (:func:`api._union_on_card`'s rule), from PyTorch's caching
+    host allocator, which hands them back on the next call; otherwise, and
+    on a CPU device, the same steps in plain memory. One synchronisation
+    at the end. Each array is a view of its buffer, which it keeps alive.
+    """
+    from .api import _union_on_card
     from .core.stats import rank_events_desc
 
-    v = np.moveaxis(np.asarray(data, np.float64), axis, 0)
-    K = v.shape[0]
-    flat = v.reshape(K, -1)
-    out = np.empty_like(flat)
-    for lo in range(0, flat.shape[1], cell_block):
-        hi = min(lo + cell_block, flat.shape[1])
-        blk = torch.from_numpy(np.ascontiguousarray(flat[:, lo:hi])).to(
-            device)
-        out[:, lo:hi] = rank_events_desc(
-            blk, torch.ones(blk.shape, dtype=torch.bool,
-                            device=device)).cpu().numpy()
-    return np.moveaxis(out.reshape(v.shape), 0, axis)
+    count("rank_calls")
+    n = sum(int(np.size(data)) for data, _ in tables)
+    pinned = _union_on_card(device, [8 * n, 8 * n])
+    if pinned:
+        count("rank_pinned_calls")
+    ranks, periods = (torch.empty(n, dtype=torch.float64, pin_memory=pinned)
+                      for _ in range(2))
+    out, at = [], 0
+    for data, axis in tables:
+        v = np.moveaxis(np.asarray(data), axis, 0)
+        if v.dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
+            v = v.astype(np.float64)  # integer or non-native byte order
+        flat = v.reshape(v.shape[0], int(np.prod(v.shape[1:])))
+        r_host, p_host = (b[at:at + flat.size].view(flat.shape)
+                          for b in (ranks, periods))
+        at += flat.size
+        for lo in range(0, flat.shape[1], cell_block):
+            hi = min(lo + cell_block, flat.shape[1])
+            blk = torch.from_numpy(np.ascontiguousarray(flat[:, lo:hi])).to(
+                device, non_blocking=True)
+            r = rank_events_desc(blk, torch.ones(
+                blk.shape, dtype=torch.bool, device=device)).to(torch.float64)
+            r_host[:, lo:hi].copy_(r, non_blocking=True)
+            p_host[:, lo:hi].copy_(torch.full_like(r, nYears + 1) / r,
+                                   non_blocking=True)
+        out.append(tuple(np.moveaxis(h.numpy().reshape(v.shape), 0, axis)
+                         for h in (r_host, p_host)))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return out
 
 
 def _stats_device(device):

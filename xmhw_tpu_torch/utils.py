@@ -139,8 +139,11 @@ def count(name: str, n=1):
     ``inter_calls`` (``pipeline.run_detect`` calls with
     ``intermediate=True``), ``inter_bytes`` (the bytes of the
     intermediate arrays they fetch from the devices; also in
-    ``d2h_bytes``) and ``inter_grid_bytes`` (the bytes of the grids
-    ``api._assemble_inter`` builds of them)."""
+    ``d2h_bytes``), ``inter_grid_bytes`` (the bytes of the grids
+    ``api._assemble_inter`` builds of them), ``rank_calls``
+    (``stats_api.mhw_rank`` calls on a device) and ``rank_pinned_calls``
+    (those whose ranks and return periods landed in page-locked host
+    memory)."""
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
 
