@@ -4,6 +4,7 @@ synchronising the card) is tested in tests/test_torch_cuda.py."""
 
 import json
 import logging
+import time
 
 import pytest
 
@@ -203,12 +204,29 @@ def test_byte_counters_count_the_uploads_and_fetches():
     x = np.arange(60, dtype=np.float32).reshape(10, 6)
     before = utils.counts()
     t = pipeline.upload(x, 2, 5, "cpu", pad_rows=3)
-    assert _delta(before) == {"h2d_bytes": x[:, 2:5].nbytes}
+    got = _delta(before)
+    assert got.pop("h2d_ns") > 0  # the copy's host wall
+    assert got == {"h2d_bytes": x[:, 2:5].nbytes}
     d = {"a": t, "b": torch.arange(7), "c": torch.ones(2, 3)}
     before = utils.counts()
     pipeline.fetch_rows(d)
-    assert _delta(before) == {"d2h_bytes": sum(v.nbytes
-                                               for v in d.values())}
+    got = _delta(before)
+    assert got.pop("d2h_ns") > 0
+    assert got == {"d2h_bytes": sum(v.nbytes for v in d.values())}
+
+
+def test_copy_wall_counts_the_wall_of_its_body_alone():
+    before = utils.counts()
+    with utils.copy_wall("h2d_ns", "cpu"):
+        time.sleep(0.002)
+    got = _delta(before)
+    assert set(got) == {"h2d_ns"} and got["h2d_ns"] >= 2_000_000
+    # an upload without pad rows returns from inside the wall
+    x = np.ones((4, 3), np.float32)
+    before = utils.counts()
+    pipeline.upload(x, 0, 3, "cpu")
+    got = _delta(before)
+    assert got.pop("h2d_ns") > 0 and got == {"h2d_bytes": x.nbytes}
 
 
 def test_run_detect_counts_its_bytes_passes_and_blocks():

@@ -4,7 +4,8 @@ over torch.distributed.
 
 The counterpart of tools/multihost_stream.py: each rank runs
 ``stream_run(..., grid_rows=band)`` on its own latitude band of one
-NetCDF file, a ``dist.barrier()`` waits for every band file, and rank 0
+NetCDF file (the bands from ``parallel.band_rows``), the group's
+``parallel.barrier()`` waits for every band file, and rank 0
 merges the band files (``merge_grid_band_files(band_dim="lat")``),
 derives ranks and return periods from the merged event tables with
 ``stream_rank`` (nYears is a record-span GLOBAL, so per-band rank files
@@ -15,9 +16,10 @@ be equal: climatology, events, block statistics, ranks and return
 periods.
 
 The grid is the JAX tool's: 12 x 8 cells, 3 daily years, float32, ~20 %
-land, stripes of 5 rows. The band edge, row 5, lies on a stripe edge:
-each stripe then holds the same ocean cells in the banded and the
-one-process runs, as a deployment whose bands tile the stripe grid.
+land, stripes of 5 rows. ``band_rows(12, 2, 5)`` puts the band edge on a
+stripe edge, row 5: each stripe then holds the same ocean cells in the
+banded and the one-process runs, as a deployment whose bands tile the
+stripe grid.
 
     python tools/torch_multiproc_stream.py           # on the card
     python tools/torch_multiproc_stream.py --device cpu   # 2 gloo ranks
@@ -49,7 +51,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PROC = 2
 NY, NX, YEARS = 12, 8, 3
 STRIPE = 5
-SPLIT = 5  # band edge, on a stripe edge (see the module docstring)
 PARTS = ("clim", "mhw", "block")
 
 
@@ -143,6 +144,7 @@ def child(rank, port, d, device, timeout):
 
     sys.path.insert(0, ROOT)
     import xmhw_tpu_torch as xt
+    from xmhw_tpu_torch.parallel import band_rows, barrier
 
     torch.set_num_threads(2)
     dev = torch.device("cpu")
@@ -157,12 +159,12 @@ def child(rank, port, d, device, timeout):
         rank=rank, timeout=datetime.timedelta(seconds=timeout))
     try:
         src = os.path.join(d, "sst.nc")
-        bands = [(0, SPLIT), (SPLIT, NY)]
+        bands = band_rows(NY, N_PROC, STRIPE)
         paths = {k: os.path.join(d, f"{k}_r{rank}.nc") for k in PARTS}
         xt.stream_run(src, "sst", paths["clim"], paths["mhw"],
                       block_path=paths["block"], stripe=STRIPE,
                       grid_rows=bands[rank], device=dev)
-        dist.barrier()  # every band file is written before the merge
+        barrier()  # every band file is written before the merge
         if rank != 0:
             say(f"rank {rank}: band {bands[rank]} written on {dev}")
             return

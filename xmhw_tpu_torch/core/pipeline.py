@@ -24,9 +24,10 @@ span (:func:`xmhw_tpu_torch.utils.span`: ``run_clim``, ``run_detect``,
 ``upload``, ``count_k``, ``detect_retry``, ``fused_stats``,
 ``fetch_rows``, ``store``, ``inter_store``), so a profiler's trace
 names the host work under each idle stretch of the device; the counters
-``h2d_bytes``, ``d2h_bytes``, ``detect_passes``, ``detect_blocks``,
-``inter_calls`` and ``inter_bytes`` (:func:`xmhw_tpu_torch.utils.counts`)
-count the copies, passes and intermediate outputs.
+``h2d_bytes``, ``d2h_bytes``, ``h2d_ns``, ``d2h_ns``, ``detect_passes``,
+``detect_blocks``, ``inter_calls`` and ``inter_bytes``
+(:func:`xmhw_tpu_torch.utils.counts`) count the copies and their host
+wall, the passes and the intermediate outputs.
 
 The block functions read data that one process holds whole. Across
 processes (a global mesh, ``parallel.mesh``) each rank runs
@@ -41,7 +42,7 @@ import torch
 from ..ops.doy_quantile import doy_quantile
 from ..parallel.mesh import (CellMesh, cell_mesh, cell_sharding, check_mesh,
                              in_process_group, process_device, replicated)
-from ..utils import count, in_span
+from ..utils import copy_wall, count, in_span
 from .clim import clim_kernel, finish_clim
 from .features_scan import count_events, detect_kernel
 
@@ -124,15 +125,17 @@ def _max_over(vals) -> int:
 def upload(arr_np, lo, hi, dev, pad_rows=0):
     """Cells [lo, hi) of a (T, C) host array as a (T + pad_rows, hi-lo)
     device tensor, the pad rows NaN. Counts the cells' bytes in
-    ``h2d_bytes``."""
+    ``h2d_bytes`` and the host wall of the copy in ``h2d_ns``."""
     blk = np.ascontiguousarray(arr_np[..., lo:hi])
     count("h2d_bytes", blk.nbytes)
     src = torch.from_numpy(blk)
     if not pad_rows:
-        return src.to(dev)
+        with copy_wall("h2d_ns", dev):
+            return src.to(dev)
     out = torch.empty((blk.shape[0] + pad_rows,) + blk.shape[1:],
                       dtype=src.dtype, device=dev)
-    out[:blk.shape[0]].copy_(src)
+    with copy_wall("h2d_ns", dev):
+        out[:blk.shape[0]].copy_(src)
     out[blk.shape[0]:] = float("nan")
     return out
 
@@ -142,13 +145,15 @@ def fetch_rows(d):
     """Download a dict of device tensors with ONE device-to-host copy per
     dtype (flattened and concatenated on the device first). Returns
     numpy arrays of the original shapes. Counts the bytes in
-    ``d2h_bytes``."""
+    ``d2h_bytes`` and the host wall of the copies in ``d2h_ns``."""
     groups = {}
     for k, v in d.items():
         groups.setdefault(v.dtype, []).append(k)
     out = {}
     for ks in groups.values():
-        flat = torch.cat([d[k].reshape(-1) for k in ks]).cpu().numpy()
+        flat = torch.cat([d[k].reshape(-1) for k in ks])
+        with copy_wall("d2h_ns", flat.device):
+            flat = flat.cpu().numpy()
         count("d2h_bytes", flat.nbytes)
         lo = 0
         for k in ks:

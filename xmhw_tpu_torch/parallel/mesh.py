@@ -31,7 +31,7 @@ import os
 import numpy as np
 import torch
 
-from ..utils import count
+from ..utils import copy_wall, count
 
 CELL_AXIS = "cells"
 
@@ -177,10 +177,15 @@ def cell_sharding(mesh, lo: int, hi: int):
 
 def replicated(mesh, t: torch.Tensor) -> dict:
     """One copy of a small table per distinct device of the mesh:
-    ``{device: tensor}``. Counts the copies' bytes in ``h2d_bytes``."""
+    ``{device: tensor}``. Counts the copies' bytes in ``h2d_bytes`` and
+    their host wall in ``h2d_ns``."""
     devs = dict.fromkeys(mesh)
     count("h2d_bytes", t.nbytes * len(devs))
-    return {d: t.to(d) for d in devs}
+    out = {}
+    for d in devs:
+        with copy_wall("h2d_ns", d):
+            out[d] = t.to(d)
+    return out
 
 
 def pad_cells(arr: np.ndarray, multiple: int, fill=np.nan):

@@ -59,6 +59,19 @@ def _sync(obj):
 
 
 @contextlib.contextmanager
+def copy_wall(name: str, dev):
+    """Add to the counter ``name`` the host wall, in nanoseconds, of the
+    copy to or from ``dev`` inside. The work queued on ``dev``'s stream is
+    waited for first, so the wall is the copy's alone."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    t0 = time.perf_counter_ns()
+    yield
+    count(name, time.perf_counter_ns() - t0)
+
+
+@contextlib.contextmanager
 def timed(label: str, sync=None, log=True):
     """Time a block; the CUDA devices of the tensors in ``sync`` (or put
     in the holder as ``holder["sync"]``) are synchronised before the
@@ -121,7 +134,12 @@ def count(name: str, n=1):
     """Add ``n`` to the counter ``name``. Counters: ``h2d_bytes`` (bytes
     the pipeline stages onto its devices: ``pipeline.upload`` and
     ``parallel.mesh.replicated``), ``d2h_bytes`` (bytes
-    ``pipeline.fetch_rows`` brings back), ``detect_passes`` (counting
+    ``pipeline.fetch_rows`` brings back), ``h2d_ns`` and ``d2h_ns`` (the
+    host wall of those same copies alone, in nanoseconds: ``copy_wall``),
+    ``group_barriers`` and ``group_wait_ns`` (``parallel.barrier()``'s
+    calls and the nanoseconds this process waited in them;
+    ``parallel.gathered_counts()`` brings every rank's counters to rank
+    0), ``detect_passes`` (counting
     passes and detection runs, one per shard, reruns included),
     ``detect_blocks`` (shard-blocks detected by ``run_detect`` and
     ``run_fused``), ``union_calls`` (``detect()``'s union-layout
