@@ -930,6 +930,60 @@ def test_union_grids_built_on_the_card(dev, monkeypatch):
     assert grids["duration"][0, 1, 1] == 7.0
 
 
+def inter_box():
+    """10 daily years on a 16 x 16 grid, row 0 and column 3 land."""
+    T = 3650
+    t = (np.datetime64("2001-01-01", "ns")
+         + np.arange(T) * np.timedelta64(1, "D"))
+    ts = field(T, 16 * 16, 14).reshape(T, 16, 16)
+    ts[:, 0, :] = np.nan
+    ts[:, :, 3] = np.nan
+    return DataArray(ts, ("time", "lat", "lon"),
+                     {"time": Coord(("time",), t),
+                      "lat": Coord(("lat",), np.arange(16.0)),
+                      "lon": Coord(("lon",), np.arange(16.0))})
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_intermediate_grids_built_on_the_card(dev, dtype, monkeypatch):
+    """detect(intermediate=True) on the card builds the intermediate
+    grids there: bit-equal to ``device="cpu"`` (the same climatology) in
+    every variable, dims and coordinates; each grid a view of page-locked
+    memory; the call counts one ``inter_card_calls`` and the grids'
+    bytes in ``inter_bytes``. With no host memory to pin, the card run
+    takes the host route, counts no card call and gives the same bits."""
+    from xmhw_tpu_torch import api, utils
+
+    da = inter_box()
+    clim = xt.threshold(da, dtype=dtype, device="cpu")
+    args = (da, clim["thresh"], clim["seas"])
+    kw = dict(intermediate=True, dtype=dtype)
+    _, want = xt.detect(*args, device="cpu", **kw)
+    before = utils.counts()
+    _, card = xt.detect(*args, device=dev, **kw)
+    after = utils.counts()
+    assert after["inter_card_calls"] - before.get("inter_card_calls",
+                                                  0) == 1
+    assert after["inter_bytes"] - before.get("inter_bytes", 0) == sum(
+        card[k].data.nbytes for k in card.keys())
+    assert list(card.keys()) == list(want.keys())
+    for k in want.keys():
+        assert card[k].dims == want[k].dims, k
+        for c in want[k].coords:
+            assert np_same_bits(card[k].coords[c].values,
+                                want[k].coords[c].values), (k, c)
+        assert np_same_bits(card[k].data, want[k].data), k
+        assert torch.from_numpy(card[k].data).is_pinned(), k
+    assert np.nansum(card["events"].data) > 0
+
+    monkeypatch.setattr(api, "_host_available", lambda: 0)
+    _, host = xt.detect(*args, device=dev, **kw)
+    assert utils.counts()["inter_card_calls"] == after["inter_card_calls"]
+    for k in want.keys():
+        assert np_same_bits(host[k].data, card[k].data), k
+        assert not torch.from_numpy(host[k].data).is_pinned(), k
+
+
 def test_land_check_compacts_into_pinned_memory(dev, monkeypatch):
     """threshold() + detect() on the card: every land check of the pair
     writes page-locked memory, and the series run_clim and run_detect get

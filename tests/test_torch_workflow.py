@@ -255,6 +255,87 @@ def test_inter_bytes_count_every_block_of_cells(monkeypatch):
                                       np.asarray(two[k].data))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("cell_block", [None, 20], ids=["one", "blocks"])
+def test_card_route_builds_the_host_route_grids(dtype, cell_block,
+                                                monkeypatch):
+    """detect(intermediate=True)'s card route (forced; here the torch
+    code on the CPU), in one cell block or several: the intermediate
+    Dataset equals the host route's bit for bit, in every variable's
+    values, dtype, dims and coordinates, and in the order of the
+    detect kernel's dict. A card call counts one ``inter_card_calls``
+    and its grids' bytes in ``inter_bytes``; the host route counts the
+    fetched arrays' bytes there, and no card call."""
+    from xmhw_tpu_torch import api
+    from xmhw_tpu_torch.core.features_scan import INTER_VARS
+
+    da, _, ocean = box(20_214)
+    T = da.sizes["time"]
+    clim = xt.threshold(da, dtype=dtype, device="cpu")
+    kw = dict(intermediate=True, dtype=dtype, device="cpu",
+              cell_block=cell_block)
+    monkeypatch.setattr(utils, "_counts", {})
+    _, host = xt.detect(da, clim["thresh"], clim["seas"], **kw)
+    c = utils.counts()
+    assert "inter_card_calls" not in c
+    size = np.dtype(dtype).itemsize
+    assert c["inter_bytes"] == len(ocean) * T * (10 * size + 5 * 1)
+
+    monkeypatch.setattr(api, "_inter_on_card", lambda *a: True)
+    monkeypatch.setattr(utils, "_counts", {})
+    _, card = xt.detect(da, clim["thresh"], clim["seas"], **kw)
+    c = utils.counts()
+    assert c["inter_card_calls"] == 1 and c["inter_calls"] == 1
+    assert c["inter_bytes"] == c["inter_grid_bytes"] == sum(
+        card[k].data.nbytes for k in card.keys())
+    assert c["inter_bytes"] == 6 * 8 * T * (10 * size + 5 * 8)
+
+    assert tuple(card.keys()) == tuple(host.keys()) == INTER_VARS
+    for k in host.keys():
+        got, want = card[k], host[k]
+        assert got.dims == want.dims == ("time", "lat", "lon"), k
+        assert got.data.dtype == want.data.dtype, k
+        np.testing.assert_array_equal(got.data, want.data, err_msg=k)
+        assert sorted(got.coords) == sorted(want.coords), k
+        for n in want.coords:
+            np.testing.assert_array_equal(got.coords[n].values,
+                                          want.coords[n].values)
+    assert host["bthresh"].data.dtype == np.float64
+    assert host["ts"].data.dtype == dtype
+
+
+@pytest.mark.parametrize("case", ["cpu", "none", "point", "no_host_memory",
+                                  "no_card_memory", "fits"])
+def test_intermediate_route_follows_device_shape_and_memory(case,
+                                                            monkeypatch):
+    """The card route for the intermediate grids is taken only on a CUDA
+    device, for a grid, where the grids' page-locked buffers (each
+    rounded up to a power of two) fit in the host memory available, and
+    the card's free memory holds the (T, C) arrays, one grid and its
+    variable's column in the grid's dtype: here a float32 series, whose
+    flags' grids are float64."""
+    from xmhw_tpu_torch import api
+
+    da, _, ocean = box(20_215)
+    ts = api.land_check(da)
+    T, C = len(da.coords["time"].values), len(ocean)
+    G = 6 * 8
+    grids = [T * G * 4] * 10 + [T * G * 8] * 5
+    host_need = api._pinned_bytes(grids)
+    card_need = T * C * 45 + T * G * 8 + T * C * 8
+    monkeypatch.setattr(api, "_host_available", lambda: host_need - (
+        case == "no_host_memory"))
+    monkeypatch.setattr(api, "_card_free", lambda dev: card_need - (
+        case == "no_card_memory"))
+    dev = {"cpu": torch.device("cpu"), "none": None}.get(
+        case, torch.device("cuda"))
+    if case == "point":
+        ts = ts.isel(cell=0)
+    assert api._inter_on_card(dev, case == "point", ts,
+                              np.float32) == (case == "fits")
+
+
 @pytest.mark.parametrize("case", ["derived", "given_nyears",
                                   "no_host_memory", "big_endian"])
 @pytest.mark.parametrize("cell_block", [65536, 5], ids=["one", "blocks"])

@@ -465,7 +465,12 @@ def detect(
     host allocator keeps the buffer for reuse, not returning it to the
     system, once the array dies. The land checks of the series and of
     ``th``/``se`` take page-locked buffers as in :func:`threshold`,
-    cached likewise once the call ends.
+    cached likewise once the call ends. With ``intermediate=True`` on a
+    grid, the intermediate arrays stay on the card, and their grids are
+    built there and land in page-locked buffers in the same way, where
+    those buffers fit in the host memory available and the card holds
+    the arrays and one grid (:func:`_inter_on_card`); otherwise the
+    arrays are fetched and their grids built on the host.
     """
     dev = mesh_device(mesh, device)
     tune_malloc()
@@ -510,6 +515,8 @@ def detect(
                 else _interpolate_na(data, maxPadLength, dev))
     if coldSpells:
         data = -data
+    inter_dev = (dev if intermediate and _inter_on_card(dev, point, ts, dt)
+                 else None)
 
     # map each timestep's doy onto the climatology's doy rows
     th_doys = np.asarray(thc.get_index("doy") if "doy" in thc.coords
@@ -537,6 +544,7 @@ def detect(
             # pass and start at a capacity that covers ~50 years of
             # typical MHW density; the overflow retry handles the rest
             first_k=128 if point else None, device=dev,
+            inter_device=inter_dev,
         )
 
     time_vals = tindex.values
@@ -564,7 +572,7 @@ def detect(
                                         calendar=str(cal))
     if intermediate:
         mhw_inter = _assemble_inter(inter, time_vals, point, ts, tdim,
-                                    tindex)
+                                    tindex, inter_dev)
         return mhw, mhw_inter
     return mhw
 
@@ -791,11 +799,85 @@ def _assemble_events_compact(tables, n_events, time_vals, point, ts, tdim,
     return ds
 
 
+def _inter_on_card(dev, point, ts, dtype):
+    """Whether :func:`detect` builds the intermediate grids of the
+    series ``ts`` (its land check's (T, C) DataArray) on the card: ``ts``
+    is a grid, not a point series; the grids' page-locked host buffers
+    fit (:func:`_union_on_card`'s rule, which also asks a CUDA ``dev``);
+    and the card's free memory holds the (T, C) arrays and one grid with
+    its variable's column cast to the grid's dtype. A grid is T x G
+    values of :func:`_fill_like`'s storage dtype (the series' ``dtype``;
+    float64 for a flag), G the cells of the unstacked grid."""
+    from .core.features_scan import INTER_FLAGS, INTER_VARS
+    from .xrlite.dataarray import _fill_like, grid_positions
+
+    if point:
+        return False
+    T, C = ts.data.shape
+    cell_coords = _cell_coords(ts)
+    _, _, grid_shape = grid_positions(cell_coords, sorted(cell_coords))
+    G = int(np.prod(grid_shape))
+    dts = [np.dtype(bool if k in INTER_FLAGS else dtype) for k in INTER_VARS]
+    sts = [_fill_like(d, np.nan)[0].itemsize for d in dts]
+    grid_bytes = [T * G * b for b in sts]
+    if not _union_on_card(dev, grid_bytes):
+        return False
+    columns = T * C * sum(d.itemsize for d in dts)
+    return columns + max(grid_bytes) + T * C * max(sts) <= _card_free(dev)
+
+
+def _card_free(dev):
+    """Bytes the card ``dev`` can still give a tensor: its free memory,
+    and what PyTorch's caching allocator holds there unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    return (free + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+
+
+def _inter_grids_card(inter, flat_pos, grid_shape, dev):
+    """The intermediate grids built on ``dev`` from its (T, C) tensors
+    ``inter``, which the call empties.
+
+    Each variable, in ``inter``'s order, is filled with NaN in
+    :func:`_fill_like`'s storage dtype (a bool flag as float64 0/1), its
+    columns are copied to their ``flat_pos`` in the (T, G) grid of
+    ``grid_shape``, and the grid is copied to the host without
+    blocking, which from a CUDA device lands in page-locked memory of
+    PyTorch's caching host allocator. The variable's tensor is let go as
+    its grid is queued; the device's stream orders each copy before the
+    next grid reuses its memory; one synchronisation at the end.
+    Returns {name: array (T, *grid_shape)}, each a view of its own host
+    tensor (the array keeps the tensor alive). On a CPU ``dev`` the same
+    steps run in host memory."""
+    from .xrlite.dataarray import _fill_like
+
+    pos = torch.as_tensor(flat_pos, dtype=torch.int64, device=dev)
+    G = int(np.prod(grid_shape))
+    grids = {}
+    for name in list(inter):
+        col = inter.pop(name)
+        st, fill = _fill_like(torch.empty(0, dtype=col.dtype).numpy().dtype,
+                              np.nan)
+        g = torch.full((col.shape[0], G), fill, device=dev,
+                       dtype=torch.from_numpy(np.empty(0, st)).dtype)
+        g.index_copy_(1, pos, col.to(g.dtype))
+        host = g.to("cpu", non_blocking=True)
+        grids[name] = host.numpy().reshape((col.shape[0],) + grid_shape)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return grids
+
+
 @in_span("assemble_inter")
-def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None):
+def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None,
+                    dev=None):
     """Per-day intermediate Dataset (reference: xmhw.py:471-478;
     point-mode keeps the pandas 'index' dim name, grid mode uses time).
-    Counts the bytes of the arrays it builds in ``inter_grid_bytes``."""
+    ``inter``: {name: (T, C) array}; with ``dev``, {name: (T, C) tensor
+    on ``dev``}, whose grids are built there (:func:`_inter_grids_card`;
+    a call counts one ``inter_card_calls`` and the grids' bytes in
+    ``inter_bytes``). Counts the bytes of the arrays it builds in
+    ``inter_grid_bytes``."""
     dimname = "index" if point else "time"
     tattrs = {}
     if tindex is not None and not np.issubdtype(
@@ -817,6 +899,21 @@ def _assemble_inter(inter, time_vals, point, ts, tdim, tindex=None):
         for k, v in _scalar_coords(ts, tdim).items():
             ds[k] = DataArray(np.full(len(time_vals), v), (dimname,),
                               {dimname: tcoord})
+    elif dev is not None:
+        from .xrlite.dataarray import grid_positions
+
+        cell_coords = _cell_coords(ts)
+        grid_dims = sorted(cell_coords)
+        flat_pos, uniques, grid_shape = grid_positions(cell_coords,
+                                                       grid_dims)
+        coords = {dimname: tcoord}
+        for d in grid_dims:
+            coords[d] = Coord((d,), uniques[d])
+        grids = _inter_grids_card(inter, flat_pos, grid_shape, dev)
+        for name, full in grids.items():
+            ds[name] = DataArray(full, (dimname, *grid_dims), coords)
+        count("inter_card_calls")
+        count("inter_bytes", sum(a.nbytes for a in grids.values()))
     else:
         cell_coords = _cell_coords(ts)
         grid_dims = sorted(cell_coords)

@@ -38,6 +38,15 @@ TABLE_VARS = (
 # (reference: xmhw/stats.py:482-486)
 RANK_VARS = tuple(k for k in TABLE_VARS
                   if not any(x in k for x in ("event", "time", "index")))
+# the intermediate dict's keys in its order, and those of them that are
+# bool flags (the others are of the series' dtype)
+INTER_VARS = (
+    "ts", "seas", "thresh", "bthresh", "events", "relSeas", "relThresh",
+    "relThreshNorm", "severity", "cats", "duration_moderate",
+    "duration_strong", "duration_severe", "duration_extreme", "mabs",
+)
+INTER_FLAGS = frozenset({"bthresh", "duration_moderate", "duration_strong",
+                         "duration_severe", "duration_extreme"})
 
 
 def event_table(F, I, n_events, T):

@@ -27,7 +27,9 @@ names the host work under each idle stretch of the device; the counters
 ``h2d_bytes``, ``d2h_bytes``, ``h2d_ns``, ``d2h_ns``, ``detect_passes``,
 ``detect_blocks``, ``inter_calls`` and ``inter_bytes``
 (:func:`xmhw_tpu_torch.utils.counts`) count the copies and their host
-wall, the passes and the intermediate outputs.
+wall, the passes and the intermediate outputs (``inter_bytes`` those
+fetched here; the API counts the grids it lands where it keeps them on
+the card).
 
 The block functions read data that one process holds whole. Across
 processes (a global mesh, ``parallel.mesh``) each rank runs
@@ -351,14 +353,18 @@ def _warn_dropped(dropped, k_cap):
 
 
 @in_span("inter_store")
-def _store_inter(out, got, lo, hi, T, C):
-    """Store one shard's fetched (T, hi - lo) intermediate arrays ``got``
-    into columns [lo, hi) of the (T, C) arrays of ``out``, made on first
-    use. Counts their bytes in ``inter_bytes``."""
+def _store_inter(out, got, lo, hi, T, C, dev=None):
+    """Store one shard's (T, hi - lo) intermediate arrays ``got`` into
+    columns [lo, hi) of the (T, C) arrays of ``out``, made on first use:
+    fetched numpy arrays, whose bytes count in ``inter_bytes``, or, with
+    ``dev``, the shard's tensors, copied into tensors on ``dev`` (from
+    another card of a mesh too), which count nothing."""
     for k, v in got.items():
-        count("inter_bytes", v.nbytes)
+        if dev is None:
+            count("inter_bytes", v.nbytes)
         if k not in out:
-            out[k] = np.empty((T, C), v.dtype)
+            out[k] = (np.empty((T, C), v.dtype) if dev is None else
+                      torch.empty((T, C), dtype=v.dtype, device=dev))
         out[k][:, lo:hi] = v
 
 
@@ -366,7 +372,8 @@ def _store_inter(out, got, lo, hi, T, C):
 def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
                max_gap, intermediate=False, block=None, mesh=None,
                k_cap=None, day0_fillna_quirk=False, use_kernels=None,
-               k_min=None, first_k=None, use_mesh=True, device="cuda"):
+               k_min=None, first_k=None, use_mesh=True, device="cuda",
+               inter_device=None):
     """Detection for all cells: returns (tables dict of (K, C) numpy,
     n_events (C,), inter dict of (T, C) numpy).
 
@@ -377,6 +384,11 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
     exact memory contract: events beyond it are dropped with a warning.
     ``mesh``/``use_mesh`` as in :func:`resolve_mesh`; ``block``: cells
     per step over the whole mesh (default 4,096 per device).
+
+    ``inter_device``: with ``intermediate``, the intermediate arrays are
+    not fetched but kept as (T, C) tensors on this device (the API's
+    card route, ``api._inter_on_card``); ``inter`` is then a dict of
+    them.
     """
     mesh = resolve_mesh(mesh, use_mesh, device)
     T, C = ts_np.shape
@@ -410,13 +422,16 @@ def run_detect(ts_np, th_np, se_np, doy_pos_np, min_duration, join_gaps,
         for (_, a, b), (tbl, nev, inter) in zip(shards, outs):
             parts = {("nev", "nev"): nev}
             parts.update({("tbl", k): v for k, v in tbl.items()})
-            parts.update({("inter", k): v for k, v in inter.items()})
+            if inter_device is None:
+                parts.update({("inter", k): v for k, v in inter.items()})
+            elif inter:
+                _store_inter(inter_out, inter, a, b, T, C, inter_device)
             fetched = fetch_rows(parts)
             nev = fetched[("nev", "nev")]
             dropped += int(np.maximum(nev - K, 0).sum())
             n_events[a:b] = np.minimum(nev, K)
             tables.put({k: fetched[("tbl", k)] for k in tbl}, a, b, K)
-            if inter:
+            if inter and inter_device is None:
                 _store_inter(inter_out, {k: fetched[("inter", k)]
                                          for k in inter}, a, b, T, C)
     _warn_dropped(dropped, k_cap)
